@@ -3,10 +3,19 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``cuzk_tpu_torch/csrc/``, holds each against its
-plain PyTorch version on the card, then drives the port's main path through
-its public entry points at the reference's published sizes: 1,048,576 pair
-hashes at batch 65536, a 50,000-leaf arity-4 tree, and 5,000 proofs
-verified.  Every phase prints one line; any failure raises, and the exit
+plain PyTorch version on the card, then drives the port's paths through
+their public entry points at the reference's published sizes:
+
+- slice 1 (phases 4-6): 1,048,576 pair hashes at batch 65536, a
+  50,000-leaf arity-4 tree, and 5,000 proofs verified;
+- slice 2 (phases 8-9): the engines (``verify_engines_match``, the CUDA
+  engine's raw permutation of 65,536 states, the packed entry points) and
+  the Poseidon benchmark suite (its gate, then the reference's Small,
+  Medium and Large configs, pairs and single: Small and Medium through the
+  coalescing engine over the packed wire, Large synchronously).
+
+Each path runs with the launch counts set to 0 just before it and read just
+after.  Every phase prints one line; any failure raises, and the exit
 code is then non-zero.  The line before the last is one JSON object with
 each kernel's launches in the main path, its error against the plain
 version, and both times; the last line is
@@ -20,6 +29,7 @@ answers against the golden values below, which
 ``cuzk_tpu.native``.
 """
 
+import itertools
 import json
 import sys
 import time
@@ -56,6 +66,11 @@ GOLDEN = [
      0x236B917229EEEA3EE41C637A7C3CC01F727AC1DC5108C962F564ACC1D8730E44),
     ("merkle_root", ((1, 2, 3, 4, 5), 3),
      0x28B819C1EB91377E70ED6E8BBB4C526B9B7ABABAFDCB021E135791FC4F3E25AA),
+    ("permutation", ([1, 2, 3],), [
+        0x07B845866686A60A43F75F0CD778887CC9C304376FCD0B3DE6964E45B9630501,
+        0x0EF091199ADBCCB5A4F16D125495A5088EFAD30E7157B84E7429C087D234C932,
+        0x157A12C9C56AE74429660DFB6AEBDF9148E6AFB977080BE9C424CCB07472AE04,
+    ]),
 ] + [
     ("hash_multiple", (tuple(range(1, w + 1)),), v) for w, v in zip(WIDTHS, (
         0x284904612E57A5ECF6AA1DEBF0DE3264C03D0556BB1EF4271F0D60B94A32A9CF,
@@ -92,8 +107,9 @@ def main() -> None:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
 
-    from cuzk_tpu_torch import constants, merkle, poseidon
+    from cuzk_tpu_torch import constants, engine, merkle, poseidon
     from cuzk_tpu_torch.bench import headline
+    from cuzk_tpu_torch.bench import run as bench_run
     from cuzk_tpu_torch.field import fr
     from cuzk_tpu_torch.ops import _build, poseidon_cuda as pc
     from cuzk_tpu_torch.utils.device import nvidia_smi_name_power, require_cuda
@@ -179,10 +195,12 @@ def main() -> None:
         "hash_pair": lambda u, v: pc.hash_pair_cuda(row([u]), row([v]))[0],
         "hash_multiple": lambda vs: pc.hash_multiple_cuda(row(vs)[None])[0],
         "merkle_root": lambda vs, arity: merkle.merkle_root(row(vs), arity),
+        "permutation": lambda vs: pc.permutation_cuda(row(vs)),
     }
     for op, args, want in GOLDEN:
-        got = fr.array_to_ints(on_card[op](*args)[None])[0]
-        check(got == want, f"golden {op}{args}: {got:#x} != {want:#x}")
+        got = fr.array_to_ints(on_card[op](*args))
+        got = got if isinstance(want, list) else got[0]
+        check(got == want, f"golden {op}{args}: {got} != {want}")
     print(f"phase 3 sponge: widths {list(WIDTHS)} at batch {batch} = plain, "
           f"{len(GOLDEN)} golden values ok", flush=True)
 
@@ -266,6 +284,97 @@ def main() -> None:
 
     for name in ("sponge", "verify"):
         check(launches[name] > 0, f"kernel {name} never ran in the main path")
+
+    # (7) K4 against the plain permutation: 65,536 states of full 256-bit
+    # values (most >= p), then rows holding every combination of 0, 1,
+    # p - 1, p and 2^256 - 1 in the three lanes, a digit d + 2^16 and a
+    # digit 0xFFFFFFFF, each read by value.
+    n_perm = 65536
+    edges_int = [0, 1, constants.P - 1, constants.P, (1 << 256) - 1]
+    combos = list(itertools.product(edges_int, repeat=3))
+    odd = digits((2, 3))
+    odd[0, 1, 5] += 1 << 16
+    odd[1, 0, 0] = 0xFFFFFFFF
+    states = torch.cat([
+        digits((n_perm, 3)),
+        row([v for c in combos for v in c]).reshape(len(combos), 3, fr.NDIGITS),
+        odd,
+    ])
+    plain_perm = poseidon.permutation(states)
+    k4_err = max_abs_err(pc.permutation_cuda(states), plain_perm)
+    check(k4_err == 0, f"K4 disagrees with the plain permutation (max err {k4_err})")
+    perm_limbs = fr.digits_to_limbs(states[:n_perm]).contiguous()
+    k4_ms = cuda_time_ms(lambda: pc.permutation_limbs(perm_limbs))
+    k4_plain_ms = cuda_time_ms(lambda: poseidon.permutation(states[:n_perm]),
+                               iters=1, warmup=0)
+    print(f"phase 7 permutation: {states.shape[0]} states (edge rows "
+          f"included) K4 = plain; K4 {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms "
+          f"at {n_perm} states on {name_power}", flush=True)
+
+    pc.reset_launch_counts()
+
+    # (8) The engines and the packed entry points.
+    check(engine.verify_engines_match(batch=4096, device=dev),
+          "verify_engines_match(4096) failed")
+    cuda_engine = engine.CudaPoseidonEngine(dev)
+    check(torch.equal(cuda_engine.batch_permutation(states[:n_perm]),
+                      plain_perm[:n_perm]),
+          "CudaPoseidonEngine.batch_permutation disagrees with plain")
+    x, y = digits((n_perm,)), digits((n_perm,))
+    check(torch.equal(pc.hash_single_cuda_packed(fr.pack16(x)),
+                      pc.hash_single_cuda(x)), "packed single")
+    check(torch.equal(pc.hash_pair_cuda_packed(fr.pack16(x), fr.pack16(y)),
+                      pc.hash_pair_cuda(x, y)), "packed pair")
+    for w in (2, 5, 9):
+        g = digits((n_perm, w))
+        check(torch.equal(pc.hash_multiple_cuda_packed(fr.pack16(g)),
+                          pc.hash_multiple_cuda(g)), f"packed multiple w={w}")
+    optimal = cuda_engine.get_optimal_batch_size()
+    print(f"phase 8 engines: verify_engines_match(4096) true, engine "
+          f"permutation of {n_perm} states = plain, packed = unpacked at "
+          f"batch {n_perm} (multiple at widths 2, 5, 9); "
+          f"get_optimal_batch_size() = {optimal}", flush=True)
+
+    # (9) The benchmark suite: its gate, then the reference's configs; each
+    # config's last output is held against the plain sponge on the card.
+    check(bench_run.verify_paths_match(device=dev), "verify_paths_match failed")
+    rates = {}
+    for batch, total, label in bench_run.POSEIDON_CONFIGS:
+        for mode in ("pairs", "single"):
+            res = bench_run.bench_poseidon(batch, total, mode, device=dev)
+            check(res["bit_exact"] and res["pipelined"] == (batch <= 2048),
+                  f"{label} {mode}")
+            rates[f"{label} {mode}"] = res["hashes_per_s"]
+            print(f"phase 9 {label} ({batch} x {total}) {mode}"
+                  f"{' coalesced' if res['pipelined'] else ' sync'}: "
+                  f"{res['hashes_per_s']:.0f} hashes/s on {name_power}",
+                  flush=True)
+
+    class PackedSpy(engine.CudaPoseidonEngine):
+        packed_calls = 0
+
+        def batch_hash_single_packed(self, xp):
+            self.packed_calls += 1
+            return super().batch_hash_single_packed(xp)
+
+    spy = PackedSpy(dev)
+    coalescing = engine.CoalescingPoseidonEngine(spy)
+    host = digits((512,)).cpu().numpy().astype(np.uint32)
+    host[2, 3] = (1 << 16) + 7  # a digit >= 2^16 must not alias
+    got = coalescing.async_hash_single(host).get()
+    check(spy.packed_calls == 0, "a non-canonical flush took the packed wire")
+    check(torch.equal(got, cuda_engine.batch_hash_single(host)),
+          "full-width flush disagrees with the CUDA engine")
+    host[2, 3] = 7
+    got = coalescing.async_hash_single(host).get()
+    check(spy.packed_calls == 1 and torch.equal(
+        got, cuda_engine.batch_hash_single(host)), "packed flush")
+    slice2 = dict(pc.launch_counts)
+    print(f"phase 9 coalescing gate: digit 2^16 + 7 took the full-width path "
+          f"= direct engine; slice-2 launches {slice2}", flush=True)
+    for name in ("permutation", "sponge"):
+        check(slice2[name] > 0, f"kernel {name} never ran in the slice-2 path")
+
     record = {"kernels": [
         {"name": "sponge", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
@@ -277,8 +386,15 @@ def main() -> None:
          "replaces": "cuzk_tpu/ops/poseidon_pallas.py:385",
          "launches": launches["verify"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "permutation", "route": "cuda",
+         "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
+         "replaces": "cuzk_tpu/ops/poseidon_pallas.py:795",
+         "launches": slice2["permutation"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
     ], "pair_hashes_per_s": head["value"], "build_50k_ms": build_ms,
-        "verify_5k_ms": verify_ms, "card": name_power}
+        "verify_5k_ms": verify_ms, "slice2_sponge_launches": slice2["sponge"],
+        "poseidon_configs_hashes_per_s": rates,
+        "optimal_batch_size": optimal, "card": name_power}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ __version__ = "0.1.0"
 __all__ = [
     "poseidon",
     "merkle",
+    "engine",
     "field",
     "ops",
     "utils",

@@ -8,12 +8,14 @@
 //
 // sponge_kernel replaces cuzk_tpu/ops/poseidon_pallas.py::_sponge_kernel_dyn
 // (pallas_call at :488).  verify_kernel replaces ::_make_verify_kernel
-// (pallas_call at :385).  The TPU kernels stream [16, 8, 128] digit tiles
+// (pallas_call at :385).  permutation_kernel replaces ::_permutation_kernel
+// (pallas_call at :795).  The TPU kernels stream [16, 8, 128] digit tiles
 // through VMEM and run a grid in order on one core; here each thread owns
-// one hash (or one proof) with the whole state in registers, and blocks run
-// in any order.  Both are bound by integer multiply-add issue: a hash reads
-// 32 bytes per input and writes 32 bytes, against tens of thousands of
-// integer instructions per permutation.
+// one hash, one proof or one state with the whole state in registers, and
+// blocks run in any order.  All three are bound by the rate of integer
+// multiply-adds: a hash reads 32 bytes per input and writes 32 bytes, a raw
+// permutation reads 96 bytes and writes 96 bytes, against tens of thousands
+// of integer instructions per permutation.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -26,6 +28,7 @@ namespace {
 
 constexpr int SPONGE_THREADS = 128;
 constexpr int VERIFY_THREADS = 64;
+constexpr int PERMUTATION_THREADS = 128;
 constexpr uint32_t DS_MULTIPLE = 3;
 
 __device__ __forceinline__ void load(Fe r, const uint32_t* p) {
@@ -110,6 +113,21 @@ __global__ void __launch_bounds__(VERIFY_THREADS)
   ok[t] = same ? 1 : 0;
 }
 
+// K4: the raw batched permutation.  in, out [B, 3, 8]: states of any
+// 256-bit values, so round 0 adds with the full wrap (permute_full).
+__global__ void __launch_bounds__(PERMUTATION_THREADS)
+    permutation_kernel(const uint32_t* __restrict__ in,
+                       uint32_t* __restrict__ out, int64_t batch) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  uint32_t s[T][NL];
+#pragma unroll
+  for (int i = 0; i < T; i++) load(s[i], in + (b * T + i) * NL);
+  permute_full(s);
+#pragma unroll
+  for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s[i]);
+}
+
 // Per-op check kernel: exposes the field library on limb tensors so that
 // each operation can be held against its plain PyTorch version.
 enum FrOp {
@@ -190,6 +208,24 @@ int cuzk_sponge(const uint32_t* in, uint32_t* out, int64_t batch, int n,
   sponge_kernel<<<blocks_for(batch, SPONGE_THREADS), SPONGE_THREADS, 0,
                   (cudaStream_t)stream>>>(in, out, batch, n, ds);
   return (int)cudaGetLastError();
+}
+
+int cuzk_permutation(const uint32_t* in, uint32_t* out, int64_t batch,
+                     void* stream) {
+  permutation_kernel<<<blocks_for(batch, PERMUTATION_THREADS),
+                       PERMUTATION_THREADS, 0, (cudaStream_t)stream>>>(
+      in, out, batch);
+  return (int)cudaGetLastError();
+}
+
+// Threads of sponge_kernel resident on one SM of the current device, from
+// the occupancy API: the engine's batch-size hint is this times the SMs.
+int cuzk_sponge_resident_threads(int* threads) {
+  int blocks = 0;
+  const cudaError_t code = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, sponge_kernel, SPONGE_THREADS, 0);
+  *threads = blocks * SPONGE_THREADS;
+  return (int)code;
 }
 
 int cuzk_verify(const int32_t* pos, const uint32_t* sib, const uint32_t* leaf,

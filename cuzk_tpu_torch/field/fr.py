@@ -95,7 +95,16 @@ def digits_to_limbs(d) -> torch.Tensor:
     By value, not a bit-pack: the limbs hold sum(d_i * 2^(16 i)) mod 2^256,
     so a digit d + 2^16 means what it means to the JAX path's carrying add
     (a bit-pack would alias it to d)."""
-    words = pack16(carry(as_digits(d)))
+    return words_to_limbs(pack16(carry(as_digits(d))))
+
+
+def words_to_limbs(words) -> torch.Tensor:
+    """:func:`pack16` words (int64 values 0..2^32-1, or int32 bit
+    patterns, which pass through) -> the same words as int32 limbs, by
+    two's complement."""
+    if isinstance(words, torch.Tensor) and words.dtype == torch.int32:
+        return words
+    words = as_digits(words) & 0xFFFFFFFF
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
         torch.int32
     )

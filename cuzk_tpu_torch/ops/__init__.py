@@ -10,11 +10,19 @@ from cuzk_tpu_torch.ops.poseidon_cuda import (
     FR_OPS,
     fr_op_cuda,
     hash_multiple_cuda,
+    hash_multiple_cuda_packed,
     hash_pair_cuda,
+    hash_pair_cuda_loop,
+    hash_pair_cuda_packed,
     hash_single_cuda,
+    hash_single_cuda_loop,
+    hash_single_cuda_packed,
     launch_counts,
+    permutation_cuda,
+    permutation_limbs,
     reset_launch_counts,
     sponge_limbs,
+    sponge_resident_threads,
     verify_limbs,
 )
 
@@ -22,10 +30,18 @@ __all__ = [
     "FR_OPS",
     "fr_op_cuda",
     "hash_multiple_cuda",
+    "hash_multiple_cuda_packed",
     "hash_pair_cuda",
+    "hash_pair_cuda_loop",
+    "hash_pair_cuda_packed",
     "hash_single_cuda",
+    "hash_single_cuda_loop",
+    "hash_single_cuda_packed",
     "launch_counts",
+    "permutation_cuda",
+    "permutation_limbs",
     "reset_launch_counts",
     "sponge_limbs",
+    "sponge_resident_threads",
     "verify_limbs",
 ]

@@ -52,6 +52,8 @@ class Kernels:
         signatures = {
             "cuzk_set_round_constants": [p],
             "cuzk_sponge": [p, p, i64, i32, u32, p],
+            "cuzk_permutation": [p, p, i64, p],
+            "cuzk_sponge_resident_threads": [ctypes.POINTER(ctypes.c_int)],
             "cuzk_verify": [p, p, p, p, p, i64, i32, i32, p],
             "cuzk_fr_op": [i32, p, p, u32, p, i64, p],
         }

@@ -19,11 +19,17 @@ The ``*_limbs`` launchers take 8 x u32 limb tensors on the card and run on
 no other device; :mod:`cuzk_tpu_torch.merkle` calls them for the tree
 build (K1) and proof verification (K3), after its own device dispatch.
 
+The ``*_packed`` entry points take ``fr.pack16`` words, two digits per u32
+word: on the card those words are K1's limbs as they stand, so they go to
+the kernel with no digit round trip.
+
 ``launch_counts`` counts each kernel's launches, so that a run can show
 which kernels its main path went through.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -35,7 +41,7 @@ from cuzk_tpu_torch.utils.errors import KernelLaunchError, ValidationError
 ND = fr.NDIGITS
 NL = fr.NLIMBS
 
-launch_counts = {"sponge": 0, "verify": 0, "fr_op": 0}
+launch_counts = {"sponge": 0, "verify": 0, "permutation": 0, "fr_op": 0}
 
 # Op codes of the per-op check kernel (csrc/poseidon_kernels.cu::FrOp),
 # each with its plain version.
@@ -133,6 +139,134 @@ def hash_multiple_cuda(inputs) -> torch.Tensor:
     """Batched n-input hash, ds=3: ``[..., n, 16] -> [..., 16]``, any n
     (n = 0 gives zeros)."""
     return _sponge(inputs, poseidon.DS_MULTIPLE)
+
+
+def sponge_resident_threads(device: torch.device) -> int:
+    """Threads of K1 resident on one SM of ``device``, from the CUDA
+    occupancy API."""
+    kernels = _build.kernels()
+    threads = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = kernels.lib.cuzk_sponge_resident_threads(ctypes.byref(threads))
+    if code != 0:
+        raise KernelLaunchError(
+            f"occupancy query failed: {kernels.error_string(code)}"
+        )
+    return threads.value
+
+
+# ---------------------------------------------------------------------------
+# K1 on packed words
+# ---------------------------------------------------------------------------
+
+def _sponge_packed(words: torch.Tensor, ds: int) -> torch.Tensor:
+    """``[..., n, 8]`` int32 pack16 words -> ``[..., 16]`` digits: the plain
+    sponge over the unpacked digits on the CPU, K1 on the words elsewhere."""
+    if words.device.type == "cpu":
+        return poseidon.sponge(fr.unpack16(words), ds)
+    _build.kernels()
+    batch, n = words.shape[:-2], words.shape[-2]
+    if n == 0:
+        return fr.zeros(batch, device=words.device)
+    out = sponge_limbs(words.reshape((-1, n, NL)).contiguous(), ds)
+    return fr.limbs_to_digits(out).reshape(batch + (ND,))
+
+
+def hash_single_cuda_packed(xp) -> torch.Tensor:
+    """ds=1 hash of packed ``[B, 8]`` words (``fr.pack16``; int64 values or
+    int32 bit patterns) -> ``[B, 16]`` digits; equal to
+    ``hash_single_cuda(fr.unpack16(xp))``."""
+    return _sponge_packed(fr.words_to_limbs(xp)[..., None, :], poseidon.DS_SINGLE)
+
+
+def hash_pair_cuda_packed(lp, rp) -> torch.Tensor:
+    """ds=2 hash of packed ``[B, 8]`` left and right words."""
+    return _sponge_packed(
+        torch.stack([fr.words_to_limbs(lp), fr.words_to_limbs(rp)], dim=-2),
+        poseidon.DS_PAIR,
+    )
+
+
+def hash_multiple_cuda_packed(xp) -> torch.Tensor:
+    """ds=3 hash of packed ``[B, n, 8]`` groups (n = 0 gives zeros)."""
+    return _sponge_packed(fr.words_to_limbs(xp), poseidon.DS_MULTIPLE)
+
+
+# ---------------------------------------------------------------------------
+# K1 in a device loop
+# ---------------------------------------------------------------------------
+
+def hash_pair_cuda_loop(left, right, iters: int) -> torch.Tensor:
+    """``iters`` chained pair hashes, ``state_{i+1} = hash_pair(state_i,
+    right)``; returns the last state, equal to ``iters`` calls of
+    :func:`hash_pair_cuda`.  On the card the operands become limbs once
+    and each step is one K1 launch whose output feeds the next."""
+    left, right = torch.broadcast_tensors(fr.as_digits(left), fr.as_digits(right))
+    if left.device.type == "cpu":
+        for _ in range(iters):
+            left = poseidon.hash_pair(left, right)
+        return left
+    _build.kernels()
+    batch = left.shape[:-1]
+    pair = fr.digits_to_limbs(
+        torch.stack([left, right], dim=-2).reshape(-1, 2, ND)
+    ).contiguous()
+    for _ in range(iters):
+        pair[:, 0] = sponge_limbs(pair, poseidon.DS_PAIR)
+    return fr.limbs_to_digits(pair[:, 0]).reshape(batch + (ND,))
+
+
+def hash_single_cuda_loop(x, iters: int) -> torch.Tensor:
+    """``iters`` chained single hashes on the card (see
+    :func:`hash_pair_cuda_loop`)."""
+    x = fr.as_digits(x)
+    if x.device.type == "cpu":
+        for _ in range(iters):
+            x = poseidon.hash_single(x)
+        return x
+    _build.kernels()
+    batch = x.shape[:-1]
+    cur = fr.digits_to_limbs(x.reshape(-1, ND)).contiguous()
+    for _ in range(iters):
+        cur = sponge_limbs(cur[:, None, :], poseidon.DS_SINGLE)
+    return fr.limbs_to_digits(cur).reshape(batch + (ND,))
+
+
+# ---------------------------------------------------------------------------
+# K4: the raw permutation
+# ---------------------------------------------------------------------------
+
+def permutation_limbs(states: torch.Tensor) -> torch.Tensor:
+    """K4 on limbs: ``states [B, 3, 8]`` int32 on the card -> ``[B, 3, 8]``,
+    the permutation of states of any 256-bit values."""
+    kernels = _build.kernels()
+    _check_limbs(states, "states", 3)
+    b, t, nl = states.shape
+    if (t, nl) != (poseidon.T, NL):
+        raise ValidationError(
+            f"states must be [B, {poseidon.T}, {NL}] limbs, got {states.shape}"
+        )
+    out = torch.empty_like(states)
+    if b:
+        _launch(kernels, kernels.lib.cuzk_permutation, states.device,
+                states.data_ptr(), out.data_ptr(), b)
+        launch_counts["permutation"] += 1
+    return out
+
+
+def permutation_cuda(states) -> torch.Tensor:
+    """Raw batched permutation on ``[..., 3, 16]`` digit states of any
+    256-bit values (digits read by value): the plain permutation on the
+    CPU, K4 elsewhere."""
+    states = fr.as_digits(states)
+    if states.device.type == "cpu":
+        return poseidon.permutation(states)
+    _build.kernels()
+    shape = states.shape
+    if shape[-2:] != (poseidon.T, ND):
+        raise ValidationError(f"states must be [..., 3, 16] digits, got {shape}")
+    limbs = fr.digits_to_limbs(states.reshape(-1, poseidon.T, ND)).contiguous()
+    return fr.limbs_to_digits(permutation_limbs(limbs)).reshape(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ from cuzk_tpu_torch.utils.errors import (
     validate_range,
 )
 from cuzk_tpu_torch.utils.stats import (
+    HashingStats,
+    TreeBenchmarkResult,
     cuda_time_ms,
     timed,
 )
@@ -33,6 +35,8 @@ __all__ = [
     "validate_index",
     "validate_non_empty",
     "validate_range",
+    "HashingStats",
+    "TreeBenchmarkResult",
     "cuda_time_ms",
     "timed",
     "check_cuda_compatibility",

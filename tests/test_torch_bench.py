@@ -1,0 +1,85 @@
+"""The port's benchmark suite on the CPU: the plumbing only.
+
+``cuzk_tpu_torch.bench.run`` runs the plain versions on CPU tensors, so its
+gates and records can be checked here at toy sizes; no number it gives on
+the CPU is a device metric.  Records carry the keys of the JAX suite's
+records (``cuzk_tpu.bench.run``), plus the card.
+"""
+
+import pytest
+import torch
+
+from cuzk_tpu_torch.bench import profile, run
+
+POSEIDON_KEYS = {
+    "suite", "mode", "path", "pipelined", "batch", "total_hashes",
+    "ns_per_hash", "hashes_per_s", "hashes_per_s_p50", "hashes_per_s_best",
+    "vs_baseline",
+}
+RESIDENT_KEYS = {
+    "suite", "mode", "batch", "total_hashes", "device_loop_iters",
+    "ns_per_hash", "hashes_per_s", "vs_baseline",
+}
+MERKLE_KEYS = {
+    "suite", "leaves", "arity", "build_ms", "build_ms_p50", "build_ms_min",
+    "leaves_per_s",
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_verify_paths_match_on_cpu():
+    assert run.verify_paths_match(batch=8, device="cpu")
+
+
+@pytest.mark.parametrize("mode,pipeline", [
+    ("pairs", None), ("single", None), ("pairs", False),
+])
+def test_bench_poseidon_record(mode, pipeline):
+    res = run.bench_poseidon(8, 16, mode, pipeline, device="cpu")
+    assert POSEIDON_KEYS <= set(res)
+    assert res["pipelined"] == (pipeline is None)  # batch 8 coalesces
+    assert res["bit_exact"] and res["card"] == "cpu" and res["path"] == "torch"
+    assert res["total_hashes"] == 16 and res["hashes_per_s"] > 0
+
+
+def test_bench_poseidon_resident_record():
+    res = run.bench_poseidon_resident(8, 16, "single", samples=1, device="cpu")
+    assert RESIDENT_KEYS <= set(res)
+    assert res["device_loop_iters"] == 2
+
+
+def test_bench_merkle_build_record():
+    res = run.bench_merkle_build(17, 4, iters=1, device="cpu")
+    assert MERKLE_KEYS <= set(res)
+    assert (res["leaves"], res["arity"]) == (17, 4)
+    assert "vs_baseline" not in res  # only the 50K build has a baseline
+
+
+def test_summary_prints_every_row(capsys):
+    rows = [
+        {"suite": "poseidon", "mode": "pairs", "batch": 8, "pipelined": True,
+         "ns_per_hash": 2.0, "hashes_per_s": 5e8, "vs_baseline": 233.1},
+        {"suite": "merkle_build", "leaves": 17, "arity": 4, "build_ms": 1.5,
+         "leaves_per_s": 1e4},
+    ]
+    run._print_summary(rows, torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "pairs batch=8 (coalesced)" in out and "17 leaves a=4" in out
+    assert "Best pair-hash throughput" in out
+
+
+def test_configs_are_the_references():
+    assert run.POSEIDON_CONFIGS == [
+        (512, 10_000, "Small Scale"),
+        (1024, 100_000, "Medium Scale"),
+        (4096, 1_000_000, "Large Scale"),
+    ]
+    assert profile.COMPREHENSIVE_CONFIGS == [
+        (1024, 100), (8192, 50), (32768, 20), (65536, 10)]

@@ -103,3 +103,81 @@ def test_verify_limbs_rejects_bad_arity_and_shapes(cuda_device):
         poseidon_cuda.verify_limbs(pos, zeros(4, 1, 1, 8), leaves, root, 3)
     with pytest.raises(errors.ValidationError, match="CUDA tensor"):
         poseidon_cuda.verify_limbs(pos, zeros(4, 1, 1, 8), leaves, root.cpu(), 2)
+
+
+def test_permutation_kernel_matches_plain_and_oracle(cuda_device):
+    rng = np.random.default_rng(400)
+    edges = [0, 1, oracle.P - 1, oracle.P, (1 << 256) - 1]
+    combos = [(a, b, c) for a in edges for b in edges for c in edges]
+    edge_states = fr.ints_to_array(
+        [v for c in combos for v in c], device=cuda_device
+    ).reshape(len(combos), 3, 16)
+    odd = digits(rng, (2, 3), cuda_device)
+    odd[0, 1, 5] += 1 << 16
+    odd[1, 0, 0] = 0xFFFFFFFF
+    states = torch.cat([digits(rng, (1024, 3), cuda_device), edge_states, odd])
+    got = poseidon_cuda.permutation_cuda(states)
+    assert torch.equal(got, poseidon.permutation(states))
+    top = (1 << 256) - 1
+    for i in (1024, 1024 + len(combos) - 1, states.shape[0] - 2,
+              states.shape[0] - 1):
+        want = oracle.permutation([v & top for v in fr.array_to_ints(states[i])])
+        assert fr.array_to_ints(got[i]) == want
+
+
+@pytest.mark.parametrize("width", [0, 2, 5])
+def test_packed_entry_points_match_unpacked(width, cuda_device):
+    rng = np.random.default_rng(500 + width)
+    x, y = digits(rng, (1024,), cuda_device), digits(rng, (1024,), cuda_device)
+    assert torch.equal(poseidon_cuda.hash_single_cuda_packed(fr.pack16(x)),
+                       poseidon_cuda.hash_single_cuda(x))
+    assert torch.equal(
+        poseidon_cuda.hash_pair_cuda_packed(fr.pack16(x), fr.pack16(y)),
+        poseidon_cuda.hash_pair_cuda(x, y))
+    g = digits(rng, (1024, width), cuda_device)
+    assert torch.equal(poseidon_cuda.hash_multiple_cuda_packed(fr.pack16(g)),
+                       poseidon_cuda.hash_multiple_cuda(g))
+
+
+def test_coalescing_over_cuda_matches_direct(cuda_device):
+    from cuzk_tpu_torch import engine
+
+    rng = np.random.default_rng(600)
+    direct = engine.CudaPoseidonEngine(cuda_device)
+    ce = engine.CoalescingPoseidonEngine(engine.CudaPoseidonEngine(cuda_device))
+    calls = []
+    for n in (1, 300, 700):
+        x = rng.integers(0, 1 << 16, (n, 16), np.uint32)
+        calls.append((ce.async_hash_single(x), direct.batch_hash_single(x)))
+        g = rng.integers(0, 1 << 16, (n, 5, 16), np.uint32)
+        calls.append((ce.async_hash_multiple(g), direct.batch_hash_multiple(g)))
+    x = rng.integers(0, 1 << 16, (64, 16), np.uint32)
+    y = x.copy()
+    y[5, 9] = (1 << 16) + 3  # non-canonical: the flush goes full width
+    calls.append((ce.async_hash_pairs(x, y), direct.batch_hash_pairs(x, y)))
+    for d, want in calls:
+        assert torch.equal(d.get(), want)
+    st = rng.integers(0, 1 << 16, (64, 3, 16), np.uint32)
+    assert torch.equal(ce.batch_permutation(st), poseidon.permutation(
+        torch.as_tensor(st.astype(np.int64), device=cuda_device)))
+
+
+def test_device_loops_match_repeated_hashing(cuda_device):
+    rng = np.random.default_rng(700)
+    x, y = digits(rng, (512,), cuda_device), digits(rng, (512,), cuda_device)
+    want_pair, want_single = x, x
+    for _ in range(3):
+        want_pair = poseidon_cuda.hash_pair_cuda(want_pair, y)
+        want_single = poseidon_cuda.hash_single_cuda(want_single)
+    assert torch.equal(poseidon_cuda.hash_pair_cuda_loop(x, y, 3), want_pair)
+    assert torch.equal(poseidon_cuda.hash_single_cuda_loop(x, 3), want_single)
+
+
+def test_optimal_batch_size_fills_every_sm(cuda_device):
+    from cuzk_tpu_torch import engine
+
+    e = engine.CudaPoseidonEngine(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    size = e.get_optimal_batch_size()
+    assert size > 0 and size % sms == 0
+    assert engine.verify_engines_match(batch=256, device=cuda_device)

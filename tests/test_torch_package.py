@@ -38,6 +38,7 @@ MODULES = [
     "cuzk_tpu_torch.field.fr",
     "cuzk_tpu_torch.poseidon",
     "cuzk_tpu_torch.merkle",
+    "cuzk_tpu_torch.engine",
     "cuzk_tpu_torch.ops",
     "cuzk_tpu_torch.ops._build",
     "cuzk_tpu_torch.ops.poseidon_cuda",
@@ -47,6 +48,8 @@ MODULES = [
     "cuzk_tpu_torch.utils.device",
     "cuzk_tpu_torch.bench",
     "cuzk_tpu_torch.bench.headline",
+    "cuzk_tpu_torch.bench.run",
+    "cuzk_tpu_torch.bench.profile",
 ]
 
 
@@ -206,9 +209,38 @@ def test_sources_ship_with_the_package():
 
 
 def test_launch_counts_reset():
-    poseidon_cuda.launch_counts["sponge"] = 3
+    assert {"sponge", "verify", "permutation"} <= set(poseidon_cuda.launch_counts)
+    for name in poseidon_cuda.launch_counts:
+        poseidon_cuda.launch_counts[name] = 3
     poseidon_cuda.reset_launch_counts()
     assert set(poseidon_cuda.launch_counts.values()) == {0}
+
+
+def test_slice2_entries_raise_without_a_gpu(no_cuda):
+    """The engines, the CUDA entry points of slice 2 and the benchmark
+    CLIs raise without a card; nothing falls back to the CPU."""
+    from cuzk_tpu_torch import engine
+    from cuzk_tpu_torch.bench import profile, run
+
+    with pytest.raises(errors.CudaUnavailableError):
+        engine.CudaPoseidonEngine()
+    with pytest.raises(errors.CudaUnavailableError):
+        engine.CoalescingPoseidonEngine()
+    with pytest.raises(errors.CudaUnavailableError):
+        engine.verify_engines_match()
+    with pytest.raises(errors.CudaUnavailableError):
+        poseidon_cuda.permutation_limbs(torch.zeros((4, 3, 8), dtype=torch.int32))
+    meta = torch.zeros((4, 3, 16), dtype=torch.int64, device="meta")
+    with pytest.raises(errors.CudaUnavailableError):
+        poseidon_cuda.permutation_cuda(meta)
+    with pytest.raises(errors.CudaUnavailableError):
+        poseidon_cuda.hash_pair_cuda_packed(meta[:, 0, :8], meta[:, 0, :8])
+    with pytest.raises(errors.CudaUnavailableError):
+        poseidon_cuda.hash_single_cuda_loop(meta[:, 0], 2)
+    with pytest.raises(errors.CudaUnavailableError):
+        run.main(["--suite", "poseidon"])
+    with pytest.raises(errors.CudaUnavailableError):
+        profile.main(["1024", "1", "pairs"])
 
 
 def _load_chip_smoke():

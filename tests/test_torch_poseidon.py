@@ -128,3 +128,122 @@ def test_cuda_wrappers_take_plain_path_on_cpu():
     x, y = port(digits(rng, (BATCH,))), port(digits(rng, (BATCH,)))
     assert torch.equal(poseidon_cuda.hash_single_cuda(x), poseidon.hash_single(x))
     assert torch.equal(poseidon_cuda.hash_pair_cuda(x, y), poseidon.hash_pair(x, y))
+
+
+# ---------------------------------------------------------------------------
+# K4's path: the raw permutation through the kernel wrapper and the engine
+# ---------------------------------------------------------------------------
+
+def test_permutation_cuda_and_engine_match_jax_and_oracle():
+    """``permutation_cuda`` and ``TorchPoseidonEngine.batch_permutation`` on
+    CPU tensors against ``cuzk_tpu.ops.permutation_pallas`` and the oracle,
+    on canonical states (rows 0-3) and unreduced ones (rows 4-7, values
+    >= p: round 0 needs the full wrap add)."""
+    from cuzk_tpu.ops import permutation_pallas
+
+    from cuzk_tpu_torch.engine import TorchPoseidonEngine
+
+    rng = np.random.default_rng(24)
+    st = digits(rng, (8, 3))
+    st[:4] = np.stack([
+        jfr.ints_to_array([int(v) % oracle.P for v in row])
+        for row in rng.integers(0, 1 << 62, (4, 3)).tolist()
+    ])
+    st[4] = jfr.ints_to_array([TOP, TOP - oracle.RC[1], oracle.P])
+    st[5] = jfr.ints_to_array([oracle.P, oracle.P - 1, 5 * oracle.P])
+    got = poseidon_cuda.permutation_cuda(port(st))
+    assert torch.equal(TorchPoseidonEngine().batch_permutation(st), got)
+    assert np.array_equal(got.numpy(), np.asarray(permutation_pallas(st)))
+    for i in range(8):
+        assert fr.array_to_ints(got[i]) == oracle.permutation(
+            [value(st[i, j]) for j in range(3)])
+
+
+# ---------------------------------------------------------------------------
+# Digits >= 2^32 - 2^16: the port reads them by value, as the oracle does.
+# The JAX package keeps digits in uint32 and its column adds wrap at 2^32,
+# so there it differs (ROADMAP Queue 3, trap (h)); the JAX package is the
+# frozen reference and is not repaired.
+# ---------------------------------------------------------------------------
+
+HIGH_DIGIT = 0xFFFFFFFF
+
+
+def test_permutation_reads_high_digits_by_value():
+    rng = np.random.default_rng(25)
+    st = digits(rng, (4, 3)).astype(np.int64)
+    st[0, 0, 0] = HIGH_DIGIT  # digit 0 of lane 0
+    st[1:] += rng.integers((1 << 32) - (1 << 16), 1 << 32, (3, 3, 16))
+    got = poseidon.permutation(port(st))
+    assert torch.equal(poseidon_cuda.permutation_cuda(port(st)), got)
+    for i in range(4):
+        assert fr.array_to_ints(got[i]) == oracle.permutation(
+            [value(st[i, j]) for j in range(3)])
+    # The JAX package wraps the digit at 2^32 and answers otherwise.
+    assert fr.array_to_ints(got[0]) != jfr.array_to_ints(
+        jpos.permutation(st[:1].astype(np.uint32))[0])
+
+
+def test_width3_sponge_reads_high_digits_by_value():
+    rng = np.random.default_rng(26)
+    g = digits(rng, (4, 3)).astype(np.int64)
+    g[0, 2, 0] = HIGH_DIGIT  # input 2: absorbed into a non-zero state
+    g[1:] += rng.integers((1 << 32) - (1 << 16), 1 << 32, (3, 3, 16))
+    got = poseidon.hash_multiple(port(g))
+    assert torch.equal(poseidon_cuda.hash_multiple_cuda(port(g)), got)
+    assert fr.array_to_ints(got) == [
+        oracle.hash_multiple([value(v) for v in row]) for row in g]
+    assert fr.array_to_ints(got[0]) != jfr.array_to_ints(
+        jpos.hash_multiple(g[:1].astype(np.uint32)))
+
+
+# ---------------------------------------------------------------------------
+# Packed inputs (fr.pack16 words)
+# ---------------------------------------------------------------------------
+
+def test_pack16_round_trip_matches_jax():
+    rng = np.random.default_rng(27)
+    x = digits(rng, (9,))
+    xp = fr.pack16(port(x))
+    assert xp.shape == (9, 8)
+    assert np.array_equal(xp.numpy(), jfr.pack16(x).astype(np.int64))
+    assert torch.equal(fr.unpack16(xp), port(x))
+    limbs = fr.words_to_limbs(xp)
+    assert limbs.dtype == torch.int32
+    assert torch.equal(fr.unpack16(limbs), port(x))
+    assert torch.equal(limbs, fr.digits_to_limbs(port(x)))
+
+
+@pytest.mark.parametrize("width", [0, 2, 5])
+def test_packed_entry_points_match_unpacked_and_jax(width):
+    from cuzk_tpu import ops as jops
+
+    rng = np.random.default_rng(28 + width)
+    g = digits(rng, (4, width))
+    got = poseidon_cuda.hash_multiple_cuda_packed(fr.pack16(port(g)))
+    assert torch.equal(got, poseidon_cuda.hash_multiple_cuda(port(g)))
+    assert np.array_equal(
+        got.numpy(), np.asarray(jops.hash_multiple_pallas_packed(jfr.pack16(g))))
+    if width != 2:
+        return
+    x, y = digits(rng, (4,)), digits(rng, (4,))
+    # int32 bit patterns are taken as well as int64 word values.
+    xp = fr.words_to_limbs(fr.pack16(port(x)))
+    single = poseidon_cuda.hash_single_cuda_packed(xp)
+    assert torch.equal(single, poseidon_cuda.hash_single_cuda(port(x)))
+    assert np.array_equal(
+        single.numpy(), np.asarray(jops.hash_single_pallas_packed(jfr.pack16(x))))
+    pair = poseidon_cuda.hash_pair_cuda_packed(xp, fr.pack16(port(y)))
+    assert torch.equal(pair, poseidon_cuda.hash_pair_cuda(port(x), port(y)))
+    assert np.array_equal(
+        pair.numpy(),
+        np.asarray(jops.hash_pair_pallas_packed(jfr.pack16(x), jfr.pack16(y))))
+
+
+def test_device_loops_take_plain_path_on_cpu():
+    rng = np.random.default_rng(29)
+    x, y = port(digits(rng, (2,))), port(digits(rng, (2,)))
+    assert torch.equal(poseidon_cuda.hash_pair_cuda_loop(x, y, 2),
+                       poseidon.hash_pair(poseidon.hash_pair(x, y), y))
+    assert torch.equal(poseidon_cuda.hash_single_cuda_loop(x, 2),
+                       poseidon.hash_single(poseidon.hash_single(x)))
