@@ -12,13 +12,27 @@ their public entry points at the reference's published sizes:
   engine's raw permutation of 65,536 states, the packed entry points) and
   the Poseidon benchmark suite (its gate, then the reference's Small,
   Medium and Large configs, pairs and single: Small and Medium through the
-  coalescing engine over the packed wire, Large synchronously).
+  coalescing engine over the packed wire, Large synchronously);
+- slice 3 (phases 10-13): the deduplicated ``verify_each`` of phase 6's
+  5,000 proofs from host arrays, valid, tampered and declined, against the
+  verify kernel; its device program against the plain version on the
+  reference's 5,000 proofs of a 1,024-leaf tree; one tampered proof in
+  50,000 isolated; ``NaryMerkleTree.verify_batch_proofs`` on 5,000 and
+  50,000 proofs already on the card against one verify-kernel launch; 64
+  incremental updates and an insert against a rebuild, 16 x 4,096 batch
+  trees, and a save/load round trip of the 50K tree.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after.  Every phase prints one line; any failure raises, and the exit
-code is then non-zero.  The line before the last is one JSON object with
-each kernel's launches in the main path, its error against the plain
-version, and both times; the last line is
+after; in slice 3 each main-path call is counted alone and must make
+exactly the launches of its route.  Every phase prints one line; any
+failure raises, and the exit code is then non-zero.  The line before the
+last is one JSON object with each kernel's launches in the main path, its
+error against the plain version, and both times, then the slice-3 launch
+counts (``slice3_sponge_launches``, ``slice3_verify_launches``) and times
+(dedup against the verify kernel at 5,000 and 50,000 proofs from the host,
+the tree method against the verify kernel on proofs on the card, the device
+program against its plain version, updates against a rebuild, batch
+trees); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 There is no CPU fallback: without a CUDA device the script exits 1 before
@@ -31,7 +45,9 @@ answers against the golden values below, which
 
 import itertools
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -375,6 +391,217 @@ def main() -> None:
     for name in ("permutation", "sponge"):
         check(slice2[name] > 0, f"kernel {name} never ran in the slice-2 path")
 
+    # Slice 3: the deduplicated verify, updates, batch trees and save/load.
+    # Each main-path call runs with the launch counts set to 0 just before
+    # it and must make exactly the launches of its route; those add up to
+    # the slice's counts.  The comparisons with K3 or the plain version and
+    # the timing loops run between such calls, so they count nowhere.
+    slice3 = dict.fromkeys(pc.launch_counts, 0)
+
+    def main_path(what, fn, sponge, verify):
+        pc.reset_launch_counts()
+        out = fn()
+        got = dict(pc.launch_counts)
+        want = dict.fromkeys(got, 0)
+        want.update(sponge=sponge, verify=verify)
+        check(got == want, f"{what}: launches {got}, want {want}")
+        for name, n in got.items():
+            slice3[name] += n
+        return out
+
+    def k3_verdicts(p, s, l, r, a=arity):
+        return merkle.verify_proofs(
+            torch.as_tensor(p, device=dev), fr.as_digits(s, device=dev),
+            fr.as_digits(l, device=dev), fr.as_digits(r, device=dev), a,
+        ).cpu().numpy()
+
+    def wall_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / iters * 1e3
+
+    def host(p, s, l, r):
+        return (p.cpu().numpy(), s.cpu().numpy().astype(np.uint32),
+                l.cpu().numpy().astype(np.uint32),
+                r.cpu().numpy().astype(np.uint32))
+
+    # (10) Phase 6's 5,000 proofs of the 50K tree, on the host as a verifier
+    # gets them, through verify_each's dedup path; tampered copies.  The
+    # dedup route is one K1 launch per proof level (h of them) and one K3
+    # launch when a check marks suspects; a declined batch is one K3 launch.
+    h = pos.shape[1]
+    pos_h, sib_h, proved_h, root_h = host(pos, sib, proved, root)
+    each = main_path("5K honest", lambda: merkle.verify_each(
+        pos_h, sib_h, proved_h, root_h, arity, device=dev), h, 0)
+    check(bool(each.all()) and np.array_equal(
+        each, k3_verdicts(pos_h, sib_h, proved_h, root_h)),
+        "dedup verify of 5,000 valid proofs")
+    # Proof 11 becomes a copy of proof 10, so the two share their suffix
+    # and tampering 10's leaf must fail an edge check: a suspect for K3.
+    lv_t, sib_t, pos_t = proved_h.copy(), sib_h.copy(), pos_h.copy()
+    lv_t[11], sib_t[11], pos_t[11] = lv_t[10], sib_t[10], pos_t[10]
+    lv_t[10, 0] ^= 1
+    sib_t[20, 3, 1, 5] ^= 1
+    pos_t[30, 2] = (pos_t[30, 2] + 1) % arity
+    got = main_path("5K tampered", lambda: merkle.verify_each(
+        pos_t, sib_t, lv_t, root_h, arity, device=dev), h, 1)
+    check(np.flatnonzero(~got).tolist() == [10, 20, 30] and np.array_equal(
+        got, k3_verdicts(pos_t, sib_t, lv_t, root_h)),
+        "dedup isolation: exactly proofs 10, 20, 30 false, = K3")
+    root_t = root_h.copy()
+    root_t[0] ^= 1
+    got = main_path("5K root tampered", lambda: merkle.verify_each(
+        pos_h, sib_h, proved_h, root_t, arity, device=dev), h, 0)
+    check(not got.any() and np.array_equal(
+        got, k3_verdicts(pos_h, sib_h, proved_h, root_t)), "tampered root")
+    sib_d = sib_h.copy()
+    sib_d[40, 0, 0, 2] += 1 << 16  # packs to the valid digit
+    check(merkle._dedup_pack(pos_h, sib_d, proved_h, root_h, arity) is None,
+          "digit d + 2^16 must take the declined path")
+    got = main_path("5K declined", lambda: merkle.verify_each(
+        pos_h, sib_d, proved_h, root_h, arity, device=dev), 0, 1)
+    check(np.flatnonzero(~got).tolist() == [40] and np.array_equal(
+        got, k3_verdicts(pos_h, sib_d, proved_h, root_h)),
+        "declined batch: exactly proof 40 false, = K3")
+    # The tree method on proofs already on the card (verify_all, dedup by
+    # default) against the one K3 launch it made before slice 3.
+    check(main_path("5K tree method", lambda: tree.verify_batch_proofs(
+        pos, sib, proved), h, 0), "verify_batch_proofs of 5,000 proofs")
+    dedup_5k_ms = wall_ms(lambda: merkle.verify_each(
+        pos_h, sib_h, proved_h, root_h, arity, device=dev))
+    exact_5k_ms = wall_ms(lambda: merkle.verify_each(
+        pos_h, sib_h, proved_h, root_h, arity, dedupe=False, device=dev))
+    tree_5k_ms = wall_ms(lambda: tree.verify_batch_proofs(pos, sib, proved))
+    k3_card_5k_ms = wall_ms(lambda: bool(merkle.verify_proofs(
+        pos, sib, proved, root, arity).all()))
+    print(f"phase 10 dedup verify: 5,000 proofs of the 50K tree = K3 (valid; "
+          f"leaf/sibling/position tampered -> exactly 10/20/30 false; root "
+          f"tampered -> all false; digit d + 2^16 declined -> 40 false); "
+          f"from host proofs: dedup {dedup_5k_ms:.3f} ms, K3 "
+          f"{exact_5k_ms:.3f} ms; proofs on the card: verify_batch_proofs "
+          f"{tree_5k_ms:.3f} ms, K3 {k3_card_5k_ms:.3f} ms on {name_power}",
+          flush=True)
+
+    # (11) The device program against its plain version on the CPU: the
+    # reference's 5,000 proofs of a 1,024-leaf arity-4 tree, honest and
+    # with one tampered leaf (so the mask is not all false; the leaf's four
+    # other proofs share its suffix, so it is a suspect for K3).
+    small = merkle.NaryMerkleTree(digits((1024,)), cfg, device=dev)
+    idx11 = torch.as_tensor(np.arange(5000) % 1024, device=dev)
+    p11, s11 = small.generate_batch_proofs(idx11)
+    p11, s11, l11, r11 = host(p11, s11, small.levels[0][idx11],
+                              small.get_root_hash())
+    l11_bad = l11.copy()
+    l11_bad[123, 7] ^= 1
+    cpu = torch.device("cpu")
+    prog_err = 0
+    for lv11, want_flags, n_k3 in ((l11, [True, True], 0),
+                                   (l11_bad, [False, True], 1)):
+        wire = merkle._dedup_pack(p11, s11, lv11, r11, arity)
+        check(wire is not None, "5K x 1024 wire")
+        run_on = lambda d, w=wire: merkle._dedup_verify_levels(  # noqa: E731
+            arity, w.sizes, w.kb, w.tb, w.lm16, merkle._upload(w.packed, d))
+        flags_card, bad_card = run_on(dev)
+        flags_cpu, bad_cpu = run_on(cpu)
+        prog_err = max(prog_err, max_abs_err(flags_card.cpu(), flags_cpu),
+                       max_abs_err(bad_card.cpu(), bad_cpu))
+        check(flags_cpu.tolist() == want_flags, f"plain flags {want_flags}")
+        got = main_path("5K x 1024", lambda: merkle.verify_each(
+            p11, s11, lv11, r11, arity, device=dev), p11.shape[1], n_k3)
+        check(np.array_equal(got, k3_verdicts(p11, s11, lv11, r11)),
+              "5K x 1024 dedup = K3")
+    check(prog_err == 0, "device program disagrees with its plain version")
+    packed11 = merkle._upload(wire.packed, dev)
+    prog_ms = cuda_time_ms(lambda: merkle._dedup_verify_levels(
+        arity, wire.sizes, wire.kb, wire.tb, wire.lm16, packed11))
+    t = time.perf_counter()
+    run_on(cpu)
+    prog_plain_ms = (time.perf_counter() - t) * 1e3
+    print(f"phase 11 device program: 5,000 proofs x 1,024 leaves, flags and "
+          f"mask = plain (CPU) on the honest and a tampered wire "
+          f"({len(wire.packed) * 4} B, jobs {list(wire.sizes)}); program "
+          f"{prog_ms:.3f} ms on {name_power}, plain {prog_plain_ms:.3f} ms "
+          f"on the host CPU", flush=True)
+
+    # (12) 50,000 proofs of a 50,000-leaf tree, one tampered: isolation
+    # flags exactly it (= K3); isolated, honest and full per-proof times
+    # (the benchmark's own timing loops, outside the counts).  Then the
+    # tree method on 50,000 proofs of phase 5's tree already on the card.
+    iso = bench_run.bench_batch_verify_tampered(n_leaves, n_leaves, arity,
+                                                iters=3, device=dev)
+    check(iso["flagged"] == [25000], f"50K isolation flagged {iso['flagged']}")
+    idx12 = torch.as_tensor(
+        np.random.default_rng(12).integers(0, n_leaves, n_leaves), device=dev)
+    pos12, sib12 = tree.generate_batch_proofs(idx12)
+    proved12 = tree.levels[0][idx12]
+    check(main_path("50K tree method", lambda: tree.verify_batch_proofs(
+        pos12, sib12, proved12), h, 0), "verify_batch_proofs of 50,000 proofs")
+    tree_50k_ms = wall_ms(lambda: tree.verify_batch_proofs(
+        pos12, sib12, proved12), 3)
+    k3_card_50k_ms = wall_ms(lambda: bool(merkle.verify_proofs(
+        pos12, sib12, proved12, root, arity).all()), 3)
+    print(f"phase 12 isolation: 1 of 50,000 tampered -> flagged [25000] = K3; "
+          f"isolated {iso['isolated_ms']:.3f} ms, honest dedup "
+          f"{iso['honest_ms']:.3f} ms, full K3 {iso['full_exact_ms']:.3f} ms "
+          f"(means of 3, host proofs); proofs on the card: "
+          f"verify_batch_proofs {tree_50k_ms:.3f} ms, K3 "
+          f"{k3_card_50k_ms:.3f} ms on {name_power}", flush=True)
+
+    # (13) Updates, insert, batch trees and save/load on the 50K tree: one
+    # K1 launch per level above the leaves.
+    uidx = np.random.default_rng(13).choice(n_leaves, 64, replace=False)
+    uvals = digits((64,))
+    upd = merkle.NaryMerkleTree.from_levels(tree.levels, arity, n_leaves,
+                                            device=dev)
+    check(main_path("64 updates", lambda: upd.update_leaves(uidx, uvals),
+                    h, 0), "update_leaves")
+    new_leaves = leaves.clone()
+    new_leaves[torch.as_tensor(uidx, device=dev)] = uvals
+    rebuilt = merkle.build_tree_levels(new_leaves, arity)
+    check(all(torch.equal(a, b) for a, b in zip(upd.levels, rebuilt))
+          and len(upd.levels) == len(rebuilt), "64 updates = rebuild")
+    check(tree.root_int() == ROOT_50K_ARITY4, "the updated tree's input moved")
+    update_ms = wall_ms(lambda: merkle.update_tree_levels(
+        tree.levels, arity, uidx, uvals))
+    rebuild_ms = wall_ms(lambda: merkle.build_tree_levels(new_leaves, arity))
+    extra = digits((1,))
+    check(main_path("insert", lambda: upd.insert_leaf(extra[0]), h, 0)
+          and upd.get_leaf_count() == n_leaves + 1, "insert_leaf")
+    want = merkle.build_tree_levels(torch.cat([new_leaves, extra]), arity)
+    check(all(torch.equal(a, b) for a, b in zip(upd.levels, want)),
+          "insert into a padded slot = rebuild")
+    sets = [digits((4096,)) for _ in range(16)]
+    batch_trees = main_path(
+        "batch trees", lambda: merkle.build_batch_trees(sets, arity),
+        merkle.tree_height(4096, arity) - 1, 0)
+    singles = [merkle.merkle_root(s, arity) for s in sets]
+    check(all(torch.equal(t.get_root_hash(), r)
+              for t, r in zip(batch_trees, singles)),
+          "batch trees = 16 single-tree roots")
+    batch_ms = wall_ms(lambda: merkle.build_batch_trees(sets, arity), 3)
+    singles_ms = wall_ms(lambda: [merkle.build_tree_levels(s, arity)
+                                  for s in sets], 3)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tree.npz")
+        merkle.save_tree(tree, path)
+        loaded = main_path("load_tree(verify=True)", lambda: merkle.load_tree(
+            path, verify=True, device=dev), h, 0)
+    check(merkle.compare_trees(tree, loaded) and all(
+        torch.equal(a, b) for a, b in zip(tree.levels, loaded.levels)),
+        "save_tree -> load_tree(verify=True)")
+    print(f"phase 13 updates: 64 updates = rebuild ({update_ms:.3f} ms vs "
+          f"rebuild {rebuild_ms:.3f} ms), insert into a padded slot = "
+          f"rebuild; 16 x 4,096 batch trees = single roots ({batch_ms:.3f} "
+          f"ms vs {singles_ms:.3f} ms one by one); save/load(verify=True) "
+          f"round trip of the 50K tree; slice-3 launches {slice3} on "
+          f"{name_power}", flush=True)
+    for name in ("sponge", "verify"):
+        check(slice3[name] > 0, f"kernel {name} never ran in the slice-3 path")
+
     record = {"kernels": [
         {"name": "sponge", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
@@ -394,7 +621,21 @@ def main() -> None:
     ], "pair_hashes_per_s": head["value"], "build_50k_ms": build_ms,
         "verify_5k_ms": verify_ms, "slice2_sponge_launches": slice2["sponge"],
         "poseidon_configs_hashes_per_s": rates,
-        "optimal_batch_size": optimal, "card": name_power}
+        "optimal_batch_size": optimal,
+        "slice3_sponge_launches": slice3["sponge"],
+        "slice3_verify_launches": slice3["verify"],
+        "dedup_verify_5k_ms": dedup_5k_ms, "k3_verify_5k_host_ms": exact_5k_ms,
+        "tree_verify_5k_card_ms": tree_5k_ms, "k3_verify_5k_card_ms": k3_card_5k_ms,
+        "tree_verify_50k_card_ms": tree_50k_ms,
+        "k3_verify_50k_card_ms": k3_card_50k_ms,
+        "dedup_program_5k_x_1024_ms": prog_ms,
+        "dedup_program_plain_cpu_ms": prog_plain_ms,
+        "isolated_50k_ms": iso["isolated_ms"],
+        "dedup_honest_50k_ms": iso["honest_ms"],
+        "k3_full_50k_ms": iso["full_exact_ms"],
+        "update_64_ms": update_ms, "rebuild_50k_ms": rebuild_ms,
+        "batch_trees_16x4096_ms": batch_ms, "single_trees_16x4096_ms": singles_ms,
+        "card": name_power}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

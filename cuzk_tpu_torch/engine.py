@@ -299,10 +299,7 @@ class CoalescingPoseidonEngine(PoseidonEngine):
                     # int32 bit patterns of the pack16 words: the kernels'
                     # limbs, uploaded as they are.
                     operands = [
-                        self._upload(
-                            (s[..., 0::2] | (s[..., 1::2] << np.uint32(16)))
-                            .view(np.int32)
-                        )
+                        self._upload(fr.pack16_host(s).view(np.int32))
                         for s in stacked
                     ]
                 else:

@@ -64,11 +64,19 @@ def array_to_ints(a) -> list:
 
 
 def as_digits(x, device=None) -> torch.Tensor:
-    """Any integer array (torch, numpy, nested lists) -> int64 tensor."""
+    """Any integer array (torch, numpy, nested lists) -> int64 tensor.  A
+    numpy uint32 array bound for a card crosses as its 4-byte words and
+    widens there."""
     if isinstance(x, torch.Tensor):
         t = x if x.dtype == DTYPE else x.to(DTYPE)
         return t if device is None else t.to(device)
-    return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
+    a = np.asarray(x)
+    if a.dtype == np.uint32 and device is not None and \
+            torch.device(device).type != "cpu":
+        words = torch.from_numpy((a if a.flags.c_contiguous else a.copy())
+                                 .view(np.int32))
+        return words.to(device).to(DTYPE) & 0xFFFFFFFF
+    return torch.as_tensor(a.astype(np.int64), device=device)
 
 
 def pack16(a) -> torch.Tensor:
@@ -78,6 +86,14 @@ def pack16(a) -> torch.Tensor:
     digit >= 2^16 that do not fit: range-check first."""
     a = as_digits(a)
     return (a[..., 0::2] | (a[..., 1::2] << DIGIT_BITS)) & 0xFFFFFFFF
+
+
+def pack16_host(a: np.ndarray) -> np.ndarray:
+    """:func:`pack16` on the host: ``[.., 16]`` numpy uint32 digits, each
+    below 2^16 (range-check first), -> ``[.., 8]`` uint32 words, the bytes
+    ``cuzk_tpu.field.fr.pack16`` gives."""
+    a = np.asarray(a, np.uint32)
+    return a[..., 0::2] | (a[..., 1::2] << np.uint32(DIGIT_BITS))
 
 
 def unpack16(p) -> torch.Tensor:

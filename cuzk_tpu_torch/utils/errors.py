@@ -25,7 +25,8 @@ class CudaUnavailableError(RuntimeError):
 
 
 class KernelBuildError(RuntimeError):
-    """The CUDA kernels failed to build or load; carries the compiler output."""
+    """The CUDA kernels or the native scheduler failed to build or load;
+    carries the compiler output."""
 
 
 class KernelLaunchError(RuntimeError):

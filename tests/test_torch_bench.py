@@ -24,6 +24,20 @@ MERKLE_KEYS = {
     "suite", "leaves", "arity", "build_ms", "build_ms_p50", "build_ms_min",
     "leaves_per_s",
 }
+# Every min beside its mean.
+PROOF_KEYS = {
+    "batch_verify": {"verify_ms", "verify_ms_min", "proofs_per_s",
+                     "all_valid", "paths_consistent"},
+    "batch_verify_resident": {"schedule_ms", "schedule_ms_min", "upload_ms",
+                              "upload_ms_min", "device_ms", "device_ms_min",
+                              "device_sync_ms", "software_ms",
+                              "software_ms_min", "upload_bytes",
+                              "unique_jobs"},
+    "batch_verify_tampered": {"isolated_ms", "isolated_ms_min", "honest_ms",
+                              "honest_ms_min", "full_exact_ms",
+                              "full_exact_ms_min", "flagged",
+                              "tampered_index"},
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -83,3 +97,54 @@ def test_configs_are_the_references():
     ]
     assert profile.COMPREHENSIVE_CONFIGS == [
         (1024, 100), (8192, 50), (32768, 20), (65536, 10)]
+
+
+def test_proof_generation_record():
+    res = run.bench_proof_generation(8, 16, 2, iters=1, device="cpu")
+    assert {"gen_ms", "gen_ms_min", "proofs_per_s", "proof_levels"} <= set(res)
+    assert res["proof_levels"] == 4 and res["card"] == "cpu"
+
+
+@pytest.mark.parametrize("dedupe", [None, False, True])
+def test_batch_verify_record_and_gate(dedupe):
+    res = run.bench_batch_verify(12, 16, 4, iters=1, dedupe=dedupe,
+                                 device="cpu")
+    assert PROOF_KEYS["batch_verify"] <= set(res)
+    assert res["all_valid"] and res["paths_consistent"]
+    assert "vs_baseline" not in res  # only the 5K verify has a baseline
+
+
+def test_batch_verify_resident_and_tampered_records():
+    res = run.bench_batch_verify_resident(12, 16, 4, iters=1, device="cpu")
+    assert PROOF_KEYS["batch_verify_resident"] <= set(res)
+    assert res["all_valid"] and res["upload_bytes"] > 0
+    res = run.bench_batch_verify_tampered(12, 16, 4, iters=1, device="cpu")
+    assert PROOF_KEYS["batch_verify_tampered"] <= set(res)
+    assert res["flagged"] == [res["tampered_index"]] == [6]
+
+
+def test_incremental_update_and_tree_matrix_records():
+    res = run.bench_incremental_update(16, 4, k=3, iters=1, device="cpu")
+    assert res["roots_consistent"] and res["updates"] == 3
+    assert {"update_ms", "update_ms_min", "rebuild_ms", "rebuild_ms_min",
+            "speedup_vs_rebuild"} <= set(res)
+    rows = run.bench_tree_matrix(((16, 2),), num_proofs=4, device="cpu")
+    assert rows[0]["suite"] == "benchmark_tree"
+    assert (rows[0]["leaf_count"], rows[0]["tree_height"]) == (16, 5)
+
+
+def test_summary_prints_the_proof_rows(capsys):
+    rows = [
+        {"suite": "batch_verify", "proofs": 5000, "arity": 4,
+         "verify_ms": 12.5, "verify_ms_min": 11.0, "proofs_per_s": 4e5,
+         "vs_baseline": 1.18},
+        {"suite": "batch_verify_tampered", "proofs": 50000, "arity": 4,
+         "isolated_ms": 40.0, "full_exact_ms": 90.0, "honest_ms": 38.0},
+        {"suite": "incremental_update", "updates": 64, "leaves": 50000,
+         "arity": 4, "update_ms": 2.0, "update_ms_min": 1.8,
+         "speedup_vs_rebuild": 5.0},
+    ]
+    run._print_summary(rows, torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "12.500 ms (min 11.000)" in out
+    assert "1 of 50000 tampered a=4" in out and "5.00x vs rebuild" in out

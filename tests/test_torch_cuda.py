@@ -181,3 +181,98 @@ def test_optimal_batch_size_fills_every_sm(cuda_device):
     size = e.get_optimal_batch_size()
     assert size > 0 and size % sms == 0
     assert engine.verify_engines_match(batch=256, device=cuda_device)
+
+
+def _host_batch(rng, n, arity, idx, device):
+    leaves = digits(rng, (n,), device)
+    tree = merkle.NaryMerkleTree(leaves, merkle.MerkleConfig(arity))
+    pos, sib = tree.generate_batch_proofs(idx)
+    return (pos.cpu().numpy(), sib.cpu().numpy().astype(np.uint32),
+            tree.levels[0][idx].cpu().numpy().astype(np.uint32),
+            tree.get_root_hash().cpu().numpy().astype(np.uint32))
+
+
+@pytest.mark.parametrize("tamper", [False, True])
+def test_dedup_device_program_matches_plain(tamper, cuda_device):
+    rng = np.random.default_rng(800)
+    pos, sib, lv, root = _host_batch(rng, 256, 4, np.arange(600) % 256,
+                                     cuda_device)
+    if tamper:
+        lv[17, 3] ^= 1
+    wire = merkle._dedup_pack(pos, sib, lv, root, 4)
+    got = merkle._dedup_verify_levels(
+        4, wire.sizes, wire.kb, wire.tb, wire.lm16,
+        merkle._upload(wire.packed, cuda_device))
+    want = merkle._dedup_verify_levels(
+        4, wire.sizes, wire.kb, wire.tb, wire.lm16,
+        merkle._upload(wire.packed, torch.device("cpu")))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert want[0].tolist() == [not tamper, True]
+
+
+@pytest.mark.parametrize("arity", [2, 4, 8])
+def test_verify_each_on_the_card_matches_the_verify_kernel(arity, cuda_device):
+    rng = np.random.default_rng(810 + arity)
+    idx = np.arange(300) % 97
+    pos, sib, lv, root = _host_batch(rng, 97, arity, idx, cuda_device)
+
+    def k3(p, s, l, r):
+        return merkle.verify_proofs(
+            torch.as_tensor(p, device=cuda_device),
+            fr.as_digits(s, device=cuda_device),
+            fr.as_digits(l, device=cuda_device),
+            fr.as_digits(r, device=cuda_device), arity).cpu().numpy()
+
+    got = merkle.verify_each(pos, sib, lv, root, arity, device=cuda_device)
+    assert got.all() and np.array_equal(got, k3(pos, sib, lv, root))
+    lv2, sib2, pos2 = lv.copy(), sib.copy(), pos.copy()
+    lv2[5, 0] ^= 1
+    sib2[50, 1, 0, 3] ^= 1
+    pos2[99, 0] = (pos2[99, 0] + 1) % arity
+    got = merkle.verify_each(pos2, sib2, lv2, root, arity, device=cuda_device)
+    assert np.flatnonzero(~got).tolist() == [5, 50, 99]
+    assert np.array_equal(got, k3(pos2, sib2, lv2, root))
+    sib2[7, 0, 0, 0] += 1 << 16  # declined: the exact path decides
+    assert merkle._dedup_pack(pos2, sib2, lv2, root, arity) is None
+    got = merkle.verify_each(pos2, sib2, lv2, root, arity, device=cuda_device)
+    assert np.array_equal(got, k3(pos2, sib2, lv2, root))
+    assert np.flatnonzero(~got).tolist() == [5, 7, 50, 99]
+
+
+def test_out_of_range_positions_through_the_verify_kernel(cuda_device):
+    rng = np.random.default_rng(820)
+    leaves = digits(rng, (64,), cuda_device)
+    levels = merkle.build_tree_levels(leaves, 4)
+    pos, sib = merkle.generate_proofs(levels, 4, [0, 5, 9, 63])
+    pos = pos.to(torch.int64)
+    pos[0, 0] = -1
+    pos[1, 1] = -(1 << 40)
+    pos[2, 2] = (1 << 32) + int(pos[2, 2])  # int32 would alias the valid one
+    got = merkle.verify_proofs(pos, sib, levels[0][[0, 5, 9, 63]],
+                               levels[-1][0], 4)
+    want = merkle.verify_proofs(pos.cpu(), sib.cpu(),
+                                levels[0][[0, 5, 9, 63]].cpu(),
+                                levels[-1][0].cpu(), 4)
+    assert torch.equal(got.cpu(), want)
+    assert want.tolist() == [False, False, False, True]
+
+
+def test_updates_batch_trees_and_load_on_the_card(cuda_device, tmp_path):
+    rng = np.random.default_rng(830)
+    leaves = digits(rng, (100,), cuda_device)
+    tree = merkle.NaryMerkleTree(leaves, merkle.MerkleConfig(4))
+    vals = digits(rng, (5,), cuda_device)
+    idx = [0, 3, 50, 98, 99]
+    assert tree.update_leaves(idx, vals) and tree.insert_leaf(vals[0])
+    new = leaves.clone().cpu()
+    new[idx] = vals.cpu()
+    want = merkle.build_tree_levels(torch.cat([new, vals[:1].cpu()]), 4)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(tree.levels, want))
+    sets = [digits(rng, (70,), cuda_device) for _ in range(3)]
+    for t, s in zip(merkle.build_batch_trees(sets, 4), sets):
+        assert torch.equal(t.get_root_hash().cpu(),
+                           merkle.merkle_root(s.cpu(), 4))
+    path = str(tmp_path / "t.npz")
+    merkle.save_tree(tree, path)
+    loaded = merkle.load_tree(path, verify=True, device=cuda_device)
+    assert loaded.levels[0].is_cuda and merkle.compare_trees(tree, loaded)

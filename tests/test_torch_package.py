@@ -38,6 +38,7 @@ MODULES = [
     "cuzk_tpu_torch.field.fr",
     "cuzk_tpu_torch.poseidon",
     "cuzk_tpu_torch.merkle",
+    "cuzk_tpu_torch.native",
     "cuzk_tpu_torch.engine",
     "cuzk_tpu_torch.ops",
     "cuzk_tpu_torch.ops._build",
@@ -46,6 +47,7 @@ MODULES = [
     "cuzk_tpu_torch.utils.errors",
     "cuzk_tpu_torch.utils.stats",
     "cuzk_tpu_torch.utils.device",
+    "cuzk_tpu_torch.utils.io",
     "cuzk_tpu_torch.bench",
     "cuzk_tpu_torch.bench.headline",
     "cuzk_tpu_torch.bench.run",
@@ -59,7 +61,8 @@ def test_import_pulls_no_jax_and_builds_nothing():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from cuzk_tpu_torch.ops import _build\n"
-        "assert _build._kernels is None\n"
+        "from cuzk_tpu_torch import native\n"
+        "assert _build._kernels is None and native._lib is None\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'cuzk_tpu')))\n"
     )
@@ -206,6 +209,9 @@ def test_sources_ship_with_the_package():
         project = f.read()
     assert "cuzk_tpu_torch*" in project
     assert "csrc/*.cu" in project and "csrc/*.cuh" in project
+    from cuzk_tpu_torch import native as port_native
+
+    assert os.path.exists(port_native.SOURCE) and "native/*.cpp" in project
 
 
 def test_launch_counts_reset():
@@ -290,3 +296,23 @@ def test_chip_smoke_golden_values_are_the_oracles(op, args, want):
 def test_chip_smoke_50k_root_is_the_native_oracles():
     leaves = oracle.generate_test_leaves(50_000, 42)
     assert native.merkle_root(leaves, 4) == CHIP_SMOKE.ROOT_50K_ARITY4
+
+
+def test_scheduler_build_failure_propagates(monkeypatch, tmp_path):
+    """A g++ error surfaces as KernelBuildError with the compiler's output,
+    and the dedup verify raises it: there is no other grouping route."""
+    from cuzk_tpu_torch import native
+
+    broken = tmp_path / "scheduler.cpp"
+    broken.write_text("int cuzk_group_rows( {\n")
+    monkeypatch.setattr(native, "SOURCE", str(broken))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(errors.KernelBuildError, match="error"):
+        native.load()
+    assert native._lib is None
+    pos = np.zeros((64, 2), np.int32)
+    sib = np.zeros((64, 2, 1, 16), np.uint32)
+    leaves = np.zeros((64, 16), np.uint32)
+    with pytest.raises(errors.KernelBuildError):
+        merkle.verify_each(pos, sib, leaves, leaves[0], 2)
