@@ -20,19 +20,29 @@ their public entry points at the reference's published sizes:
   50,000 isolated; ``NaryMerkleTree.verify_batch_proofs`` on 5,000 and
   50,000 proofs already on the card against one verify-kernel launch; 64
   incremental updates and an insert against a rebuild, 16 x 4,096 batch
-  trees, and a save/load round trip of the 50K tree.
+  trees, and a save/load round trip of the 50K tree;
+- slice 4 (phase 14 and the lanes in phases 3 and 6): K1 and K3 at every
+  G they are built for (``pc.LANES``: one thread per state, or three lanes
+  holding one state element each) against their plain versions at edge
+  batches, and a latency sweep of each kernel under each G beside the
+  automatic choice.  Phase 1 prints ptxas's record
+  of every kernel (registers, stack frame, spills) and fails if K1 or K3
+  uses local memory.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; in slice 3 each main-path call is counted alone and must make
 exactly the launches of its route.  Every phase prints one line; any
 failure raises, and the exit code is then non-zero.  The line before the
 last is one JSON object with each kernel's launches in the main path, its
-error against the plain version, and both times, then the slice-3 launch
+error against the plain version, both times, its bound (the larger of its
+bytes over the card's memory rate and its 32-bit multiplies over the
+card's integer multiply-add rate at ``clocks.max.sm``) and the share of it
+reached, the lanes chosen at that shape, then the slice-3 launch
 counts (``slice3_sponge_launches``, ``slice3_verify_launches``) and times
 (dedup against the verify kernel at 5,000 and 50,000 proofs from the host,
 the tree method against the verify kernel on proofs on the card, the device
 program against its plain version, updates against a rebuild, batch
-trees); the last line is
+trees), the slice-4 sweep and the ptxas record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 There is no CPU fallback: without a CUDA device the script exits 1 before
@@ -46,6 +56,7 @@ answers against the golden values below, which
 import itertools
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -100,6 +111,15 @@ GOLDEN = [
         0x26971F086141E99B9258165B5D37ECB4F24C50F8737121331AF4546A10412FEF,
     ))
 ]
+# The bound's rates (NVIDIA H100 SXM): device memory 3.35 TB/s; 64 32-bit
+# integer multiply-adds a clock on each SM (CUDA C Programming Guide,
+# throughput table, compute capability 9.0), at the card's clocks.max.sm.
+# A permutation at the reference's semantics computes 44,096 32 x 32-bit
+# limb products (80 S-boxes of 436, 576 one-limb MDS products of 16), each
+# two multiply results (low and high word).
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_CLOCK_PER_SM = 64
+MULTIPLIES_PER_PERMUTATION = 2 * 44_096
 # Root of generate_test_leaves(50000, 42) at arity 4.
 ROOT_50K_ARITY4 = 0x1DBAA7D03762117ABE6540A328C508C2506446C1300316FC4C9537DCE3490EFE
 
@@ -137,10 +157,33 @@ def main() -> None:
     print(f"phase 0 device: {name_power}", flush=True)
     print(name_power, flush=True)  # as nvidia-smi gives it
 
-    # (1) Build.
+    # (1) Build, and ptxas's record of each kernel: K1 and K3 must keep
+    # every operand in registers under each G.
     kernels = _build.kernels()
     print(f"phase 1 build: {kernels.build_seconds:.1f} s -> {kernels.path}",
           flush=True)
+    for name in sorted(kernels.ptxas):
+        rec = kernels.ptxas[name]
+        print(f"phase 1 ptxas {name}: {rec}", flush=True)
+        if name.startswith(("sponge_kernel", "verify_kernel")):
+            check(rec.get("stack_frame") == 0 and rec.get("spill_stores") == 0
+                  and rec.get("spill_loads") == 0,
+                  f"{name} uses local memory: {rec}")
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=30,
+    ).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def bound(permutations, nbytes):
+        """(bound_ms, bound_by) of work of ``permutations`` permutations
+        moving ``nbytes`` bytes."""
+        ops_s = permutations * MULTIPLIES_PER_PERMUTATION / (
+            sms * IMAD_PER_CLOCK_PER_SM * clock_hz)
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        return max(ops_s, bytes_s) * 1e3, (
+            "operations" if ops_s >= bytes_s else "bytes")
 
     rng = np.random.default_rng(2024)
 
@@ -177,12 +220,21 @@ def main() -> None:
     for c in sorted(set(constants.MDS)) + [0, 1, 65535]:
         op_err = max(op_err, max_abs_err(pc.fr_op_cuda("mul_small", a, c=c),
                                          fr.mul_small(a, c)))
+    # The reduced-operand mul_small at every MDS coefficient, and at its
+    # edge (a = p - 1, c = 26: high = 4, and the second fold must not be
+    # needed).
+    for c in sorted(set(constants.MDS)):
+        op_err = max(op_err, max_abs_err(pc.fr_op_cuda("mul_small_rr", ra, c=c),
+                                         fr.mul_small(ra, c)))
+    top = fr.ints_to_array([constants.P - 1] * 64, device=dev)
+    op_err = max(op_err, max_abs_err(pc.fr_op_cuda("mul_small_rr", top, c=26),
+                                     fr.mul_small(top, 26)))
     wide = fr.mul_wide(a, b)
     op_err = max(op_err, max_abs_err(pc.fr_op_cuda("reduce_wide", wide),
                                      fr.reduce_wide(wide)))
     check(op_err == 0, f"fr op kernel disagrees with plain (max err {op_err})")
-    print(f"phase 2 fr ops: {a.shape[0]} operands x 8 ops, max_abs_err 0",
-          flush=True)
+    print(f"phase 2 fr ops: {a.shape[0]} operands x {len(pc.FR_OPS)} ops, "
+          f"mul_small_rr(p - 1, 26): max_abs_err 0", flush=True)
 
     # (3) K1 against the plain sponge: every width, unreduced inputs and a
     # non-canonical digit d + 2^16; then every golden value.
@@ -198,6 +250,23 @@ def main() -> None:
         g[1, w - 1, 0] += 1 << 16
         k1_err = max(k1_err, max_abs_err(pc.hash_multiple_cuda(g),
                                          poseidon.hash_multiple(g)))
+    # Every G at edge batches (1, G - 1, G + 1, 31, 33, and 517, not a
+    # multiple of the block): one plain sponge per width over all of them.
+    edge_sizes = sorted({1, 31, 33, 517} | {g + d for g in pc.LANES
+                                           for d in (-1, 1) if g + d > 0})
+    for w in WIDTHS:
+        g_all = digits((sum(edge_sizes), w))
+        g_all[::7, w - 1, 0] += 1 << 16
+        want = poseidon.hash_multiple(g_all)
+        limbs = fr.digits_to_limbs(g_all).contiguous()
+        for g in pc.LANES:
+            o = 0
+            for size in edge_sizes:
+                got = pc.sponge_limbs(limbs[o:o + size], poseidon.DS_MULTIPLE,
+                                      lanes=g)
+                k1_err = max(k1_err, max_abs_err(fr.limbs_to_digits(got),
+                                                 want[o:o + size]))
+                o += size
     check(k1_err == 0, f"K1 disagrees with the plain sponge (max err {k1_err})")
 
     def row(vals):
@@ -217,7 +286,8 @@ def main() -> None:
         got = fr.array_to_ints(on_card[op](*args))
         got = got if isinstance(want, list) else got[0]
         check(got == want, f"golden {op}{args}: {got} != {want}")
-    print(f"phase 3 sponge: widths {list(WIDTHS)} at batch {batch} = plain, "
+    print(f"phase 3 sponge: widths {list(WIDTHS)} at batch {batch} = plain; "
+          f"every G {list(pc.LANES)} at batches {edge_sizes} = plain; "
           f"{len(GOLDEN)} golden values ok", flush=True)
 
     # Kernel and plain times at the main path's shapes (pair hash, batch
@@ -293,10 +363,52 @@ def main() -> None:
     end.synchronize()
     k3_plain_ms = start.elapsed_time(end)
     k3_err = max_abs_err(bad, plain_ok)
+    k3_lanes = pc.choose_lanes(n_proofs, pc.resident_states(dev, "verify"))
+    # Every G at this shape, and at edge batches over arities 2, 3, 4 and 8
+    # with tampered leaves, siblings and positions out of range.
+    limbs5k = (pos.clamp(-1, arity).to(torch.int32).contiguous(),
+               fr.digits_to_limbs(tampered_sib).contiguous(),
+               fr.digits_to_limbs(tampered_leaves).contiguous(),
+               fr.digits_to_limbs(root).contiguous())
+    for g in pc.LANES:
+        k3_err = max(k3_err, max_abs_err(pc.verify_limbs(*limbs5k, arity, lanes=g),
+                                         plain_ok))
+    k3_edges = sorted({1, 31, 33, 517} | {g + d for g in pc.LANES
+                                         for d in (-1, 1) if g + d > 0})
+    for a_ in (2, 3, 4, 8):
+        small_tree = merkle.build_tree_levels(digits((300,)), a_)
+        idx_e = torch.as_tensor(np.arange(max(k3_edges)) * 7 % 300, device=dev)
+        pe, se = merkle.generate_proofs(small_tree, a_, idx_e)
+        le = small_tree[0][idx_e].clone()
+        pe = pe.to(torch.int64)
+        pe[::11, 0] = a_ + 1
+        pe[5::13, -1] = -1
+        le[3::17, 2] ^= 1
+        se[7::19, 0, 0, 1] ^= 1
+        want = merkle._verify_plain(pe, se, le, small_tree[-1][0], a_)
+        args = (pe.clamp(-1, a_).to(torch.int32).contiguous(),
+                fr.digits_to_limbs(se).contiguous(),
+                fr.digits_to_limbs(le).contiguous(),
+                fr.digits_to_limbs(small_tree[-1][0]).contiguous())
+        for g in pc.LANES:
+            for size in k3_edges:
+                got = pc.verify_limbs(*(t[:size] for t in args[:3]), args[3],
+                                      a_, lanes=g)
+                k3_err = max(k3_err, max_abs_err(got, want[:size]))
+        check(bool(want.any()) and not bool(want.all()), "K3 edge batch mixes")
     check(k3_err == 0, "K3 disagrees with the plain verify")
     print(f"phase 6 verify: 5,000 proofs all true, tampered 10/20/30 false, "
-          f"K3 = plain; warm verify {verify_ms:.3f} ms on {name_power}",
-          flush=True)
+          f"K3 = plain at every G {list(pc.LANES)} (auto G = {k3_lanes}) and "
+          f"at batches {k3_edges} over arities 2, 3, 4, 8; warm verify "
+          f"{verify_ms:.3f} ms on {name_power}", flush=True)
+    # The 50K build's K1 launches, one per level, each timed alone.
+    build_k1_ms = 0.0
+    for lv in tree.levels[:-1]:
+        lv_limbs = fr.digits_to_limbs(lv).contiguous().view(-1, arity, fr.NLIMBS)
+        build_k1_ms += cuda_time_ms(
+            lambda x=lv_limbs: pc.sponge_limbs(x, poseidon.DS_MULTIPLE), iters=5)
+    print(f"phase 6 build's K1 launches: {build_k1_ms:.3f} ms in sum over "
+          f"{len(tree.levels) - 1} levels on {name_power}", flush=True)
 
     for name in ("sponge", "verify"):
         check(launches[name] > 0, f"kernel {name} never ran in the main path")
@@ -467,10 +579,10 @@ def main() -> None:
     check(np.flatnonzero(~got).tolist() == [40] and np.array_equal(
         got, k3_verdicts(pos_h, sib_d, proved_h, root_h)),
         "declined batch: exactly proof 40 false, = K3")
-    # The tree method on proofs already on the card (verify_all, dedup by
-    # default) against the one K3 launch it made before slice 3.
+    # The tree method on proofs already on the card: one K3 launch where
+    # they lie, no host round trip, against a direct K3 call.
     check(main_path("5K tree method", lambda: tree.verify_batch_proofs(
-        pos, sib, proved), h, 0), "verify_batch_proofs of 5,000 proofs")
+        pos, sib, proved), 0, 1), "verify_batch_proofs of 5,000 proofs")
     dedup_5k_ms = wall_ms(lambda: merkle.verify_each(
         pos_h, sib_h, proved_h, root_h, arity, device=dev))
     exact_5k_ms = wall_ms(lambda: merkle.verify_each(
@@ -539,7 +651,7 @@ def main() -> None:
     pos12, sib12 = tree.generate_batch_proofs(idx12)
     proved12 = tree.levels[0][idx12]
     check(main_path("50K tree method", lambda: tree.verify_batch_proofs(
-        pos12, sib12, proved12), h, 0), "verify_batch_proofs of 50,000 proofs")
+        pos12, sib12, proved12), 0, 1), "verify_batch_proofs of 50,000 proofs")
     tree_50k_ms = wall_ms(lambda: tree.verify_batch_proofs(
         pos12, sib12, proved12), 3)
     k3_card_50k_ms = wall_ms(lambda: bool(merkle.verify_proofs(
@@ -602,22 +714,69 @@ def main() -> None:
     for name in ("sponge", "verify"):
         check(slice3[name] > 0, f"kernel {name} never ran in the slice-3 path")
 
+    # (14) Latency sweep: each kernel at the shapes the slices launch it
+    # with, under every G, beside the automatic choice.
+    sweep = {}
+
+    def sweep_point(label, fn, batch, kernel):
+        times = {g: cuda_time_ms(lambda g=g: fn(g), iters=3, warmup=1)
+                 for g in pc.LANES}
+        auto = pc.choose_lanes(batch, pc.resident_states(dev, kernel))
+        sweep[label] = {"ms": {str(g): t for g, t in times.items()},
+                        "auto_lanes": auto,
+                        "best_lanes": min(times, key=times.get)}
+        print(f"phase 14 sweep {label}: " + ", ".join(
+            f"G={g} {t:.3f} ms" for g, t in times.items())
+            + f"; auto G={auto} on {name_power}", flush=True)
+
+    for n_groups in (64, 1024, 16384, 65536):
+        x4 = fr.digits_to_limbs(digits((n_groups, 4))).contiguous()
+        sweep_point(f"K1 arity-4 x {n_groups}", lambda g, x=x4: pc.sponge_limbs(
+            x, poseidon.DS_MULTIPLE, lanes=g), n_groups, "sponge")
+    for n_pairs in (4096, 65536, 262144):
+        x2 = fr.digits_to_limbs(digits((n_pairs, 2))).contiguous()
+        sweep_point(f"K1 pairs x {n_pairs}", lambda g, x=x2: pc.sponge_limbs(
+            x, poseidon.DS_PAIR, lanes=g), n_pairs, "sponge")
+    for n_k in (500, 5000, 50000):
+        idx14 = torch.as_tensor(
+            np.random.default_rng(14).integers(0, n_leaves, n_k), device=dev)
+        p14, s14 = tree.generate_batch_proofs(idx14)
+        a14 = (p14.contiguous(), fr.digits_to_limbs(s14).contiguous(),
+               fr.digits_to_limbs(tree.levels[0][idx14]).contiguous(),
+               fr.digits_to_limbs(root).contiguous())
+        sweep_point(f"K3 {n_k} x 8 levels", lambda g, a=a14: pc.verify_limbs(
+            *a, arity, lanes=g), n_k, "verify")
+    resident = {k: pc.resident_states(dev, k) for k in ("sponge", "verify")}
+    print(f"phase 14 resident states at G = 1: {resident}", flush=True)
+
+    k1_bound, k1_by = bound(65536, 65536 * 3 * 32)
+    k3_perms = n_proofs * h * ((arity + 1) // 2)
+    k3_bound, k3_by = bound(k3_perms, pos.numel() * 4 + sib.numel() * 2
+                            + proved.numel() * 2 + 32 + n_proofs)
+    k4_bound, k4_by = bound(n_perm, n_perm * 6 * 32)
+    k1_lanes = pc.choose_lanes(65536, resident["sponge"])
     record = {"kernels": [
         {"name": "sponge", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
          "replaces": "cuzk_tpu/ops/poseidon_pallas.py:488",
          "launches": launches["sponge"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "bound_by": k1_by, "share": k1_bound / k1_ms, "lanes": k1_lanes,
+         "library_ms": None},
         {"name": "verify", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
          "replaces": "cuzk_tpu/ops/poseidon_pallas.py:385",
          "launches": launches["verify"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "share": k3_bound / k3_ms, "lanes": k3_lanes,
+         "library_ms": None},
         {"name": "permutation", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
          "replaces": "cuzk_tpu/ops/poseidon_pallas.py:795",
          "launches": slice2["permutation"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_by, "share": k4_bound / k4_ms, "lanes": 1,
+         "library_ms": None},
     ], "pair_hashes_per_s": head["value"], "build_50k_ms": build_ms,
         "verify_5k_ms": verify_ms, "slice2_sponge_launches": slice2["sponge"],
         "poseidon_configs_hashes_per_s": rates,
@@ -635,7 +794,9 @@ def main() -> None:
         "k3_full_50k_ms": iso["full_exact_ms"],
         "update_64_ms": update_ms, "rebuild_50k_ms": rebuild_ms,
         "batch_trees_16x4096_ms": batch_ms, "single_trees_16x4096_ms": singles_ms,
-        "card": name_power}
+        "build_50k_k1_ms": build_k1_ms, "sweep": sweep,
+        "resident_states": resident, "clocks_max_sm_mhz": clock_hz / 1e6,
+        "ptxas": kernels.ptxas, "card": name_power}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

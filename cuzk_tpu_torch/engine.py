@@ -24,7 +24,7 @@ import torch
 from cuzk_tpu_torch import poseidon
 from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.ops import poseidon_cuda
-from cuzk_tpu_torch.utils.device import require_cuda
+from cuzk_tpu_torch.utils.device import require_cuda, resolve_device
 from cuzk_tpu_torch.utils.errors import ComputationError, ValidationError
 from cuzk_tpu_torch.utils.stats import HashingStats, timed
 
@@ -85,12 +85,14 @@ class PoseidonEngine(abc.ABC):
 
 class TorchPoseidonEngine(PoseidonEngine):
     """Reference path: the plain PyTorch functions of
-    :mod:`cuzk_tpu_torch.poseidon` on ``device`` (the CPU by default); the
-    counterpart of ``cuzk_tpu.engine.JnpPoseidonEngine``."""
+    :mod:`cuzk_tpu_torch.poseidon` on ``device`` (the card by default; it
+    raises :class:`CudaUnavailableError` without one, and runs on the CPU
+    for ``device="cpu"``); the counterpart of
+    ``cuzk_tpu.engine.JnpPoseidonEngine``."""
 
     def __init__(self, device=None):
         super().__init__()
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
 
     def _on(self, x) -> torch.Tensor:
         return fr.as_digits(x, device=self.device)

@@ -8,6 +8,8 @@ held against the plain versions on the card.
 
 from cuzk_tpu_torch.ops.poseidon_cuda import (
     FR_OPS,
+    LANES,
+    choose_lanes,
     fr_op_cuda,
     hash_multiple_cuda,
     hash_multiple_cuda_packed,
@@ -21,6 +23,7 @@ from cuzk_tpu_torch.ops.poseidon_cuda import (
     permutation_cuda,
     permutation_limbs,
     reset_launch_counts,
+    resident_states,
     sponge_limbs,
     sponge_resident_threads,
     verify_limbs,
@@ -28,6 +31,8 @@ from cuzk_tpu_torch.ops.poseidon_cuda import (
 
 __all__ = [
     "FR_OPS",
+    "LANES",
+    "choose_lanes",
     "fr_op_cuda",
     "hash_multiple_cuda",
     "hash_multiple_cuda_packed",
@@ -41,6 +46,7 @@ __all__ = [
     "permutation_cuda",
     "permutation_limbs",
     "reset_launch_counts",
+    "resident_states",
     "sponge_limbs",
     "sponge_resident_threads",
     "verify_limbs",

@@ -1,13 +1,14 @@
 """Build and load the CUDA kernels at first use.
 
 The counterpart of ``cuzk_tpu.native.ensure_built``: the sources under
-``cuzk_tpu_torch/csrc/`` are compiled with ``torch.utils.cpp_extension.load``
-(nvcc, for sm_90a only, ``-O3``) into ``cuzk_tpu_torch/_build/``, a directory
-git ignores, and bound through their plain C interface with ctypes.  The
-sources include no PyTorch header, so nvcc takes seconds, not minutes.
-Importing this module builds nothing; a failed build raises
-:class:`KernelBuildError` with the compiler's output, and nothing falls
-back to the CPU.
+``cuzk_tpu_torch/csrc/`` are compiled by nvcc (sm_90a only, ``-O3``) into a
+shared library in ``cuzk_tpu_torch/_build/``, a directory git ignores, and
+bound through their plain C interface with ctypes.  The sources include no
+PyTorch header.  ptxas reports each kernel's registers, stack frame and
+spills (``-Xptxas -v``); :attr:`Kernels.ptxas` holds that record, parsed,
+beside the library.  Importing this module builds nothing; a failed build
+raises :class:`KernelBuildError` with the compiler's output, and nothing
+falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
+import shutil
+import subprocess
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -28,22 +32,75 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("poseidon_kernels.cu",)
-HEADERS = ("fr254.cuh",)
-EXTENSION_NAME = "cuzk_tpu_torch_kernels"
+HEADERS = ("fr254.cuh", "poseidon.cuh")
+LIBRARY_NAME = "libcuzk_tpu_torch_kernels"
 NVCC_FLAGS = (
     "-O3",
     "-std=c++17",
     "-gencode=arch=compute_90a,code=sm_90a",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler=-fPIC",
 )
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_FRAME = re.compile(
+    r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+)
+_REGS = re.compile(r"Used (\d+) registers")
+# The kernel's own name in a mangled symbol: the last "<len>name_kernel",
+# with its lane count when it is a template.
+_KERNEL = re.compile(r"(?<=\d)([a-z_]+_kernel)(?:ILi(\d+)EE)?")
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """``{kernel<G>: {registers, stack_frame, spill_stores, spill_loads}}``
+    from nvcc's ``-Xptxas -v`` output."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            found = _KERNEL.findall(m.group(1))
+            name = m.group(1) if not found else (
+                found[-1][0] + (f"<{found[-1][1]}>" if found[-1][1] else ""))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = _FRAME.search(line)
+        if m:
+            out[name].update(stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise KernelBuildError("nvcc was not found (no CUDA toolkit)")
+    return path
 
 
 class Kernels:
     """The loaded kernel library: ctypes handles plus the build's record."""
 
-    def __init__(self, lib: ctypes.CDLL, path: str, build_seconds: float):
+    def __init__(self, lib: ctypes.CDLL, path: str, build_seconds: float,
+                 ptxas: Dict[str, Dict[str, int]]):
         self.lib = lib
         self.path = path
         self.build_seconds = build_seconds
+        self.ptxas = ptxas
         self._devices_with_constants = set()
         self._lock = threading.Lock()
         p, i32, i64, u32 = (
@@ -51,10 +108,10 @@ class Kernels:
         )
         signatures = {
             "cuzk_set_round_constants": [p],
-            "cuzk_sponge": [p, p, i64, i32, u32, p],
+            "cuzk_sponge": [p, p, i64, i32, u32, i32, p],
             "cuzk_permutation": [p, p, i64, p],
-            "cuzk_sponge_resident_threads": [ctypes.POINTER(ctypes.c_int)],
-            "cuzk_verify": [p, p, p, p, p, i64, i32, i32, p],
+            "cuzk_resident_states": [i32, i32, ctypes.POINTER(ctypes.c_int)],
+            "cuzk_verify": [p, p, p, p, p, i64, i32, i32, i32, p],
             "cuzk_fr_op": [i32, p, p, u32, p, i64, p],
         }
         for name, argtypes in signatures.items():
@@ -93,30 +150,34 @@ _kernels_lock = threading.Lock()
 
 
 def build() -> str:
-    """Compile the kernels into :data:`BUILD_DIR`; returns the library path."""
+    """Compile the kernels into :data:`BUILD_DIR`; returns the library
+    path.  The ptxas record is written beside it (``.ptxas.txt``)."""
     require_cuda()
-    from torch.utils.cpp_extension import load
-
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # The name carries a digest of every source and header: torch's loader
-    # tracks the sources alone, and a stale library must never load.
-    digest = hashlib.sha256()
+    # The name carries a digest of every source, header and flag, so a
+    # stale library never loads.
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, f), "rb") as fh:
             digest.update(fh.read())
+    path = os.path.join(BUILD_DIR, f"{LIBRARY_NAME}_{digest.hexdigest()[:12]}.so")
+    if os.path.exists(path) and os.path.exists(path + ".ptxas.txt"):
+        return path
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", tmp,
+           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
     try:
-        path = load(
-            name=f"{EXTENSION_NAME}_{digest.hexdigest()[:12]}",
-            sources=[os.path.join(CSRC_DIR, s) for s in SOURCES],
-            extra_cuda_cflags=list(NVCC_FLAGS),
-            extra_include_paths=[CSRC_DIR],
-            build_directory=BUILD_DIR,
-            is_python_module=False,
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise KernelBuildError(f"running nvcc failed: {e}") from e
+    if res.returncode != 0 or not os.path.exists(tmp):
+        raise KernelBuildError(
+            f"building the CUDA kernels failed (nvcc exit {res.returncode}):\n"
+            f"{res.stdout}{res.stderr}"
         )
-    except (RuntimeError, OSError) as e:
-        raise KernelBuildError(f"building the CUDA kernels failed:\n{e}") from e
-    if not isinstance(path, str) or not os.path.exists(path):
-        raise KernelBuildError(f"the build produced no library ({path!r})")
+    with open(path + ".ptxas.txt", "w") as fh:
+        fh.write(res.stdout + res.stderr)
+    os.replace(tmp, path)
     return path
 
 
@@ -131,5 +192,7 @@ def kernels() -> Kernels:
                 lib = ctypes.CDLL(path)
             except OSError as e:
                 raise KernelBuildError(f"loading {path} failed: {e}") from e
-            _kernels = Kernels(lib, path, time.perf_counter() - start)
+            with open(path + ".ptxas.txt") as fh:
+                ptxas = parse_ptxas(fh.read())
+            _kernels = Kernels(lib, path, time.perf_counter() - start, ptxas)
         return _kernels

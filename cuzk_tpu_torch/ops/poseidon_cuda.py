@@ -1,14 +1,24 @@
 """Wrappers of the CUDA Poseidon kernels, each beside its plain version.
 
 The counterpart of the wrapper half of ``cuzk_tpu/ops/poseidon_pallas.py``.
-Every public function takes ``[..., 16]`` digit tensors, as the JAX package
-does, and dispatches on the tensors' device:
+Every public function takes ``[..., 16]`` digits, as the JAX package
+does, and runs where its tensors lie:
 
-- on the CPU it runs the plain PyTorch version (``cuzk_tpu_torch.poseidon``);
+- host data (numpy arrays, lists) goes to the card
+  (:func:`~cuzk_tpu_torch.utils.device.resolve_device`; without a card it
+  raises :class:`CudaUnavailableError`);
+- torch tensors on the CPU take the plain PyTorch version
+  (``cuzk_tpu_torch.poseidon``): the CPU runs only when asked for;
 - on any other device it builds the kernels (at the first call), checks
   device, dtype, shape and contiguity, converts digits to limbs, launches
   on PyTorch's current stream and raises on a launch error.  There is no
   fallback: without a Hopper card, or when the build fails, it raises.
+
+K1 and K3 run G lanes of a warp per state: one thread per state (G = 1),
+or three lanes holding one state element each (G = 3,
+``csrc/poseidon.cuh``).  :func:`choose_lanes` picks 3 for small launches
+and 1 for large ones, from the crossover ``chip_smoke.py``'s sweep
+measures; ``lanes=`` forces G, for the tests and the sweep.
 
 The TPU path's batch and width bucketing (``_bucket_tiles``,
 ``_bucket_batch``, ``PAD_WIDTH``, ``_SCALAR_CACHE``) existed to bound
@@ -36,10 +46,15 @@ import torch
 from cuzk_tpu_torch import constants, poseidon
 from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.ops import _build
+from cuzk_tpu_torch.utils.device import resolve_device
 from cuzk_tpu_torch.utils.errors import KernelLaunchError, ValidationError
 
 ND = fr.NDIGITS
 NL = fr.NLIMBS
+# The G each of K1 and K3 is built for: one thread per state, or 3 lanes
+# holding one element each (a group of four threads per state,
+# csrc/poseidon.cuh).
+LANES = (1, 3)
 
 launch_counts = {"sponge": 0, "verify": 0, "permutation": 0, "fr_op": 0}
 
@@ -54,6 +69,7 @@ FR_OPS = {
     "mul_small": (5, fr.mul_small),
     "reduce_wide": (6, fr.reduce_wide),
     "red": (7, fr.red),
+    "mul_small_rr": (8, fr.mul_small),  # reduced operand, c <= 26
 }
 
 
@@ -86,13 +102,76 @@ def _launch(kernels: _build.Kernels, fn, device: torch.device, *args) -> None:
         )
 
 
+def _on_device(x, device=None) -> torch.Tensor:
+    """``x`` as int64 digits on the device it should run on (see the
+    module docstring)."""
+    return fr.as_digits(x, device=resolve_device(device, x))
+
+
+# ---------------------------------------------------------------------------
+# Lanes per state
+# ---------------------------------------------------------------------------
+
+# The crossover of the lanes sweep (chip_smoke.py phase 14, NVIDIA H100
+# 80GB HBM3 at 700 W): the element split (3 lanes) is 1.4-1.6x faster than
+# one thread per state up to 5,000 states, and 1.5x slower from 16,384 on,
+# where its four threads per state make the launch issue-bound.  A wave is
+# 67,584-84,480 states, so the split stops at an eighth of one.
+SPLIT_LANES = 3
+SPLIT_FRACTION = 8
+
+
+def choose_lanes(batch: int, resident: int) -> int:
+    """G for a launch of ``batch`` states on a card that holds ``resident``
+    states at one thread each: the element split (3 lanes) up to an eighth
+    of a wave, where one state's latency bounds the launch; one thread per
+    state above it, where the issue rate does.  A pure function, so the
+    choice can be tested."""
+    return SPLIT_LANES if batch * SPLIT_FRACTION <= resident else 1
+
+
+_KERNEL_IDS = {"sponge": 0, "verify": 1}
+_resident_cache = {}
+
+
+def resident_states(device: torch.device, kernel: str = "sponge",
+                    lanes: int = 1) -> int:
+    """States of ``kernel`` (``"sponge"`` or ``"verify"``) at ``lanes``
+    lanes each that the whole card ``device`` holds resident: the SM count
+    times the occupancy API's count for one SM.  Cached per device."""
+    key = (device.index, kernel, lanes)
+    if key not in _resident_cache:
+        kernels = _build.kernels()
+        states = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            code = kernels.lib.cuzk_resident_states(
+                _KERNEL_IDS[kernel], lanes, ctypes.byref(states))
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+        if code != 0:
+            raise KernelLaunchError(
+                f"occupancy query failed: {kernels.error_string(code)}"
+            )
+        _resident_cache[key] = states.value * sms
+    return _resident_cache[key]
+
+
+def _lanes(lanes, batch: int, device: torch.device, kernel: str) -> int:
+    if lanes is None:
+        return choose_lanes(batch, resident_states(device, kernel))
+    if lanes not in LANES:
+        raise ValidationError(f"lanes must be one of {LANES}, got {lanes}")
+    return lanes
+
+
 # ---------------------------------------------------------------------------
 # K1: the sponge
 # ---------------------------------------------------------------------------
 
-def sponge_limbs(x: torch.Tensor, ds: int) -> torch.Tensor:
+def sponge_limbs(x: torch.Tensor, ds: int, lanes=None) -> torch.Tensor:
     """K1 on limbs: ``x [B, n, 8]`` int32 on the card -> ``[B, 8]`` int32,
-    the sponge with domain separator ``ds`` over each row's n inputs."""
+    the sponge with domain separator ``ds`` over each row's n inputs.
+    ``lanes`` forces G (one of :data:`LANES`); by default
+    :func:`choose_lanes` picks it."""
     kernels = _build.kernels()
     _check_limbs(x, "inputs", 3)
     b, n, nl = x.shape
@@ -102,8 +181,9 @@ def sponge_limbs(x: torch.Tensor, ds: int) -> torch.Tensor:
     if b == 0 or n == 0:
         # The empty input returns 0 with no permutation (SURVEY.md B.4).
         return out.zero_()
+    g = _lanes(lanes, b, x.device, "sponge")
     _launch(kernels, kernels.lib.cuzk_sponge, x.device,
-            x.data_ptr(), out.data_ptr(), b, n, ds)
+            x.data_ptr(), out.data_ptr(), b, n, ds, g)
     launch_counts["sponge"] += 1
     return out
 
@@ -111,7 +191,6 @@ def sponge_limbs(x: torch.Tensor, ds: int) -> torch.Tensor:
 def _sponge(inputs, ds: int) -> torch.Tensor:
     """``[..., n, 16]`` digits -> ``[..., 16]``: the plain sponge on the CPU,
     K1 elsewhere."""
-    inputs = fr.as_digits(inputs)
     if inputs.device.type == "cpu":
         return poseidon.sponge(inputs, ds)
     _build.kernels()
@@ -126,33 +205,28 @@ def _sponge(inputs, ds: int) -> torch.Tensor:
 
 def hash_single_cuda(x) -> torch.Tensor:
     """Batched single-input hash, ds=1: ``[..., 16] -> [..., 16]``."""
-    return _sponge(fr.as_digits(x)[..., None, :], poseidon.DS_SINGLE)
+    return _sponge(_on_device(x)[..., None, :], poseidon.DS_SINGLE)
 
 
 def hash_pair_cuda(left, right) -> torch.Tensor:
     """Batched pair hash, ds=2: two ``[..., 16]`` -> ``[..., 16]``."""
-    left, right = torch.broadcast_tensors(fr.as_digits(left), fr.as_digits(right))
+    device = resolve_device(None, left, right)
+    left, right = torch.broadcast_tensors(_on_device(left, device),
+                                          _on_device(right, device))
     return _sponge(torch.stack([left, right], dim=-2), poseidon.DS_PAIR)
 
 
 def hash_multiple_cuda(inputs) -> torch.Tensor:
     """Batched n-input hash, ds=3: ``[..., n, 16] -> [..., 16]``, any n
     (n = 0 gives zeros)."""
-    return _sponge(inputs, poseidon.DS_MULTIPLE)
+    return _sponge(_on_device(inputs), poseidon.DS_MULTIPLE)
 
 
 def sponge_resident_threads(device: torch.device) -> int:
-    """Threads of K1 resident on one SM of ``device``, from the CUDA
-    occupancy API."""
-    kernels = _build.kernels()
-    threads = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        code = kernels.lib.cuzk_sponge_resident_threads(ctypes.byref(threads))
-    if code != 0:
-        raise KernelLaunchError(
-            f"occupancy query failed: {kernels.error_string(code)}"
-        )
-    return threads.value
+    """Threads of K1 at one thread per state resident on one SM of
+    ``device``, from the CUDA occupancy API."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return resident_states(device, "sponge") // sms
 
 
 # ---------------------------------------------------------------------------
@@ -172,24 +246,32 @@ def _sponge_packed(words: torch.Tensor, ds: int) -> torch.Tensor:
     return fr.limbs_to_digits(out).reshape(batch + (ND,))
 
 
+def _words_on_device(words, device=None) -> torch.Tensor:
+    """``fr.pack16`` words as int32 limbs on the device they should run on
+    (see the module docstring)."""
+    return fr.words_to_limbs(words).to(resolve_device(device, words))
+
+
 def hash_single_cuda_packed(xp) -> torch.Tensor:
     """ds=1 hash of packed ``[B, 8]`` words (``fr.pack16``; int64 values or
     int32 bit patterns) -> ``[B, 16]`` digits; equal to
     ``hash_single_cuda(fr.unpack16(xp))``."""
-    return _sponge_packed(fr.words_to_limbs(xp)[..., None, :], poseidon.DS_SINGLE)
+    return _sponge_packed(_words_on_device(xp)[..., None, :], poseidon.DS_SINGLE)
 
 
 def hash_pair_cuda_packed(lp, rp) -> torch.Tensor:
     """ds=2 hash of packed ``[B, 8]`` left and right words."""
+    device = resolve_device(None, lp, rp)
     return _sponge_packed(
-        torch.stack([fr.words_to_limbs(lp), fr.words_to_limbs(rp)], dim=-2),
+        torch.stack([_words_on_device(lp, device), _words_on_device(rp, device)],
+                    dim=-2),
         poseidon.DS_PAIR,
     )
 
 
 def hash_multiple_cuda_packed(xp) -> torch.Tensor:
     """ds=3 hash of packed ``[B, n, 8]`` groups (n = 0 gives zeros)."""
-    return _sponge_packed(fr.words_to_limbs(xp), poseidon.DS_MULTIPLE)
+    return _sponge_packed(_words_on_device(xp), poseidon.DS_MULTIPLE)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +283,9 @@ def hash_pair_cuda_loop(left, right, iters: int) -> torch.Tensor:
     right)``; returns the last state, equal to ``iters`` calls of
     :func:`hash_pair_cuda`.  On the card the operands become limbs once
     and each step is one K1 launch whose output feeds the next."""
-    left, right = torch.broadcast_tensors(fr.as_digits(left), fr.as_digits(right))
+    device = resolve_device(None, left, right)
+    left, right = torch.broadcast_tensors(_on_device(left, device),
+                                          _on_device(right, device))
     if left.device.type == "cpu":
         for _ in range(iters):
             left = poseidon.hash_pair(left, right)
@@ -219,7 +303,7 @@ def hash_pair_cuda_loop(left, right, iters: int) -> torch.Tensor:
 def hash_single_cuda_loop(x, iters: int) -> torch.Tensor:
     """``iters`` chained single hashes on the card (see
     :func:`hash_pair_cuda_loop`)."""
-    x = fr.as_digits(x)
+    x = _on_device(x)
     if x.device.type == "cpu":
         for _ in range(iters):
             x = poseidon.hash_single(x)
@@ -258,7 +342,7 @@ def permutation_cuda(states) -> torch.Tensor:
     """Raw batched permutation on ``[..., 3, 16]`` digit states of any
     256-bit values (digits read by value): the plain permutation on the
     CPU, K4 elsewhere."""
-    states = fr.as_digits(states)
+    states = _on_device(states)
     if states.device.type == "cpu":
         return poseidon.permutation(states)
     _build.kernels()
@@ -275,10 +359,11 @@ def permutation_cuda(states) -> torch.Tensor:
 
 def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
                  leaves: torch.Tensor, root: torch.Tensor,
-                 arity: int) -> torch.Tensor:
+                 arity: int, lanes=None) -> torch.Tensor:
     """K3 on limbs: ``positions [k, h]`` int32, ``siblings [k, h, a-1, 8]``,
     ``leaves [k, 8]`` and ``root [8]`` int32 on the card, h >= 1 ->
-    ``[k] bool``, whether each proof's recomputed root equals ``root``."""
+    ``[k] bool``, whether each proof's recomputed root equals ``root``.
+    ``lanes`` forces G; by default :func:`choose_lanes` picks it."""
     kernels = _build.kernels()
     _check_limbs(positions, "positions", 2)
     _check_limbs(siblings, "siblings", 4)
@@ -301,9 +386,10 @@ def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
         )
     ok = torch.empty(k, dtype=torch.uint8, device=leaves.device)
     if k:
+        g = _lanes(lanes, k, leaves.device, "verify")
         _launch(kernels, kernels.lib.cuzk_verify, leaves.device,
                 positions.data_ptr(), siblings.data_ptr(), leaves.data_ptr(),
-                root.data_ptr(), ok.data_ptr(), k, h, arity)
+                root.data_ptr(), ok.data_ptr(), k, h, arity, g)
         launch_counts["verify"] += 1
     return ok.bool()
 
@@ -315,11 +401,12 @@ def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
 def fr_op_cuda(op: str, a, b=None, c: int = 0) -> torch.Tensor:
     """One field operation of the device library on ``[n, 16]`` digits
     (``reduce_wide`` takes ``[n, 32]``): ``b`` for the binary ops, the
-    constant ``c`` for ``mul_small``.  The plain ``fr`` op on the CPU."""
+    constant ``c`` for ``mul_small`` and ``mul_small_rr`` (whose operand
+    must be reduced, c <= 26).  The plain ``fr`` op on the CPU."""
     code, plain = FR_OPS[op]
-    a = fr.as_digits(a)
+    a = _on_device(a)
     if a.device.type == "cpu":
-        if op == "mul_small":
+        if op in ("mul_small", "mul_small_rr"):
             return plain(a, c)
         return plain(a) if b is None else plain(a, b)
     kernels = _build.kernels()

@@ -23,6 +23,7 @@ from cuzk_tpu_torch.utils.device import (
     device_info,
     nvidia_smi_name_power,
     require_cuda,
+    resolve_device,
 )
 
 __all__ = [
@@ -43,4 +44,5 @@ __all__ = [
     "device_info",
     "nvidia_smi_name_power",
     "require_cuda",
+    "resolve_device",
 ]

@@ -28,6 +28,19 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def resolve_device(device=None, *data) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    device of the first torch tensor among ``data``, else the card
+    (:func:`require_cuda`, which raises without one).  So the CPU runs only
+    when the caller asks for it, by name or with tensors on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    for x in data:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return require_cuda()
+
+
 def nvidia_smi_name_power() -> str:
     """``name, power.limit`` of the cards as nvidia-smi reports them."""
     out = subprocess.run(

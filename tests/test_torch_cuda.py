@@ -50,6 +50,8 @@ def test_fr_op_kernel_matches_plain(op, cuda_device):
         got, want = poseidon_cuda.fr_op_cuda(op, w), plain(w)
     elif op == "mul_small":
         got, want = poseidon_cuda.fr_op_cuda(op, a, c=23), plain(a, 23)
+    elif op == "mul_small_rr":
+        got, want = poseidon_cuda.fr_op_cuda(op, b, c=23), plain(b, 23)
     elif op == "add_rr":
         ra = fr.red(a)
         got, want = poseidon_cuda.fr_op_cuda(op, ra, b), plain(ra, b)
@@ -58,6 +60,84 @@ def test_fr_op_kernel_matches_plain(op, cuda_device):
     else:
         got, want = poseidon_cuda.fr_op_cuda(op, a), plain(a)
     assert torch.equal(got, want)
+
+
+def test_reduced_mul_small_at_its_edge(cuda_device):
+    """a = p - 1, c = 26: a c >> 256 = 4, the largest high word, and the
+    second fold is still never needed."""
+    a = fr.ints_to_array([oracle.P - 1] * 8, device=cuda_device)
+    assert (oracle.P - 1) * 26 >> 256 == 4
+    got = poseidon_cuda.fr_op_cuda("mul_small_rr", a, c=26)
+    assert fr.array_to_ints(got) == [oracle.mul(oracle.P - 1, 26)] * 8
+    assert torch.equal(got, fr.mul_small(a, 26))
+
+
+@pytest.mark.parametrize("widths", [range(0, 12), range(12, 23), range(23, 34)],
+                         ids=["0-11", "12-22", "23-33"])
+def test_sponge_kernel_under_each_lane_count(widths, cuda_device):
+    """Every G at batches 1, G - 1, G + 1, 31, 33 and 130 (not a multiple
+    of the block), widths 0-33: one plain sponge per width over them all."""
+    rng = np.random.default_rng(250 + widths[0])
+    sizes = sorted({1, 31, 33, 130} | {g + d for g in poseidon_cuda.LANES
+                                       for d in (-1, 1) if g + d > 0})
+    for width in widths:
+        g = digits(rng, (sum(sizes), width), cuda_device)
+        if width:
+            g[::5, width - 1, 0] += 1 << 16
+        want = poseidon.hash_multiple(g) if width else fr.zeros(
+            (sum(sizes),), device=cuda_device)
+        x = fr.digits_to_limbs(g).contiguous()
+        for lanes in poseidon_cuda.LANES:
+            o = 0
+            for size in sizes:
+                got = poseidon_cuda.sponge_limbs(x[o:o + size], 3, lanes=lanes)
+                assert torch.equal(fr.limbs_to_digits(got), want[o:o + size]), (
+                    width, lanes, size)
+                o += size
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("arity", [2, 3, 4, 8])
+def test_verify_kernel_under_each_lane_count(lanes, arity, cuda_device):
+    rng = np.random.default_rng(260 + arity)
+    levels = merkle.build_tree_levels(digits(rng, (70,), cuda_device), arity)
+    idx = torch.as_tensor(np.arange(133) * 5 % 70, device=cuda_device)
+    pos, sib = merkle.generate_proofs(levels, arity, idx)
+    leaves = levels[0][idx].clone()
+    pos = pos.to(torch.int64)
+    pos[::9, 0] = arity + 3  # out of range, both sides
+    pos[4::10, -1] = -2
+    leaves[2::7, 1] ^= 1
+    root = levels[-1][0]
+    want = merkle._verify_plain(pos, sib, leaves, root, arity)
+    args = (pos.clamp(-1, arity).to(torch.int32).contiguous(),
+            fr.digits_to_limbs(sib).contiguous(),
+            fr.digits_to_limbs(leaves).contiguous())
+    for k in sorted({1, max(lanes - 1, 1), lanes + 1, 31, 33, 133}):
+        got = poseidon_cuda.verify_limbs(*(t[:k] for t in args),
+                                         fr.digits_to_limbs(root).contiguous(),
+                                         arity, lanes=lanes)
+        assert torch.equal(got, want[:k]), k
+    assert want.any() and not want.all()
+
+
+def test_tree_method_on_card_proofs_is_one_verify_launch(cuda_device,
+                                                         monkeypatch):
+    rng = np.random.default_rng(270)
+    tree = merkle.NaryMerkleTree(digits(rng, (300,), cuda_device),
+                                 merkle.MerkleConfig(4))
+    idx = torch.as_tensor(np.arange(200) % 300, device=cuda_device)
+    pos, sib = tree.generate_batch_proofs(idx)
+    proved = tree.levels[0][idx]
+    monkeypatch.setattr(merkle, "_host",
+                        lambda x: pytest.fail("host copy of card proofs"))
+    poseidon_cuda.reset_launch_counts()
+    assert tree.verify_batch_proofs(pos, sib, proved)
+    assert poseidon_cuda.launch_counts["verify"] == 1
+    assert poseidon_cuda.launch_counts["sponge"] == 0
+    bad = proved.clone()
+    bad[17, 0] ^= 1
+    assert not tree.verify_batch_proofs(pos, sib, bad)
 
 
 @pytest.mark.parametrize("width", [0, 1, 2, 3, 5, 9, 16, 33])

@@ -21,6 +21,8 @@ from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.ops import poseidon_cuda
 from cuzk_tpu_torch.utils.errors import ComputationError
 
+CPU = "cpu"  # the CPU tests ask for the plain path by name
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -45,7 +47,7 @@ def _equal(a, b):
 def test_torch_engine_matches_jnp_engine():
     """The counterpart of test_engines_cross_verify off the card: the plain
     engine equals ``cuzk_tpu``'s jnp engine over all four ops."""
-    ours, theirs = engine.TorchPoseidonEngine(), jengine.JnpPoseidonEngine()
+    ours, theirs = engine.TorchPoseidonEngine(device=CPU), jengine.JnpPoseidonEngine()
     l, r = _digits(8), _digits(8)
     groups = _digits(8, 5)
     states = _rng.integers(0, 1 << 16, (8, 3, 16), np.uint32)
@@ -56,14 +58,14 @@ def test_torch_engine_matches_jnp_engine():
 
 
 def test_torch_engine_permutation_golden():
-    e = engine.TorchPoseidonEngine()
+    e = engine.TorchPoseidonEngine(device=CPU)
     st = jfr.ints_to_array([1, 2, 3]).reshape(1, 3, 16)
     got = fr.array_to_ints(e.batch_permutation(st))
     assert got == oracle.permutation([1, 2, 3])
 
 
 def test_engine_stats_accumulate():
-    e = engine.TorchPoseidonEngine()
+    e = engine.TorchPoseidonEngine(device=CPU)
     l = fr.ints_to_array([1, 2, 3, 4])
     r = fr.ints_to_array([5, 6, 7, 8])
     e.timed_hash_pairs(l, r)
@@ -80,8 +82,8 @@ def test_engine_stats_accumulate():
 # ---------------------------------------------------------------------------
 
 def test_coalescing_interleaved_mixed_calls_bit_exact():
-    inner = engine.TorchPoseidonEngine()
-    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine())
+    inner = engine.TorchPoseidonEngine(device=CPU)
+    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine(device=CPU))
     calls = {}  # queue key -> [(deferred, inputs)]
     for n in (1, 3, 7):
         x = _digits(n)
@@ -111,8 +113,8 @@ def test_coalescing_interleaved_mixed_calls_bit_exact():
 
 
 def test_coalescing_sync_surface_matches_inner():
-    inner = engine.TorchPoseidonEngine()
-    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine())
+    inner = engine.TorchPoseidonEngine(device=CPU)
+    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine(device=CPU))
     x = _digits(6)
     assert torch.equal(ce.batch_hash_single(x), inner.batch_hash_single(x))
     l, r = _digits(4), _digits(4)
@@ -128,7 +130,7 @@ class _PackedTorchEngine(engine.TorchPoseidonEngine):
     packed entry points on CPU tensors; counts its packed calls."""
 
     def __init__(self):
-        super().__init__()
+        super().__init__(device=CPU)
         self.packed_calls = 0
 
     def batch_hash_single_packed(self, xp):
@@ -152,17 +154,17 @@ def test_coalescing_packed_gate_non_canonical_digits():
     x = _digits(4)
     x[2, 3] = (1 << 16) + 7  # non-canonical digit
     d = ce.async_hash_single(x)
-    assert torch.equal(d.get(), engine.TorchPoseidonEngine().batch_hash_single(x))
+    assert torch.equal(d.get(), engine.TorchPoseidonEngine(device=CPU).batch_hash_single(x))
     assert inner.packed_calls == 0
     # A canonical flush takes the packed path and agrees too.
     l, r = _digits(6), _digits(6)
     d2 = ce.async_hash_pairs(l, r)
-    assert torch.equal(d2.get(), engine.TorchPoseidonEngine().batch_hash_pairs(l, r))
+    assert torch.equal(d2.get(), engine.TorchPoseidonEngine(device=CPU).batch_hash_pairs(l, r))
     assert inner.packed_calls == 1
 
 
 def test_coalescing_get_before_and_after_flush():
-    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine())
+    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine(device=CPU))
     x = _digits(4)
     d1 = ce.async_hash_single(x)
     v1 = d1.get()  # get() forces the flush
@@ -176,7 +178,7 @@ def test_coalescing_get_before_and_after_flush():
 
 def test_coalescing_flush_threshold_triggers():
     ce = engine.CoalescingPoseidonEngine(
-        inner=engine.TorchPoseidonEngine(), flush_elems=8
+        inner=engine.TorchPoseidonEngine(device=CPU), flush_elems=8
     )
     d1 = ce.async_hash_single(_digits(5))
     assert not d1.ready and ce._pending == 5
@@ -189,7 +191,7 @@ class _FlakyEngine(engine.TorchPoseidonEngine):
     """Raises on the first batch_hash_single call, then recovers."""
 
     def __init__(self):
-        super().__init__()
+        super().__init__(device=CPU)
         self.fail_next = True
 
     def batch_hash_single(self, x):
@@ -210,7 +212,7 @@ def test_coalescing_flush_failure_restores_queue():
         ce.flush()
     assert ce._queues  # the work is still queued
     got = d.get()  # retry succeeds
-    assert torch.equal(got, engine.TorchPoseidonEngine().batch_hash_single(x))
+    assert torch.equal(got, engine.TorchPoseidonEngine(device=CPU).batch_hash_single(x))
     assert not ce._queues
 
 
@@ -227,12 +229,12 @@ def test_coalescing_threshold_flush_failure_is_deferred(caplog):
     assert isinstance(ce.last_flush_error, RuntimeError)
     assert sum("deferred threshold-flush" in m for m in caplog.messages) == 1
     got = d.get()  # retry on get() succeeds
-    assert torch.equal(got, engine.TorchPoseidonEngine().batch_hash_single(x))
+    assert torch.equal(got, engine.TorchPoseidonEngine(device=CPU).batch_hash_single(x))
     assert ce.last_flush_error is None  # cleared by the successful flush
 
 
 def test_coalescing_stats_and_empty_flush():
-    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine())
+    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine(device=CPU))
     ce.flush()  # empty: no-op
     assert ce.stats.batch_count == 0
     ce.batch_hash_single(_digits(2))
@@ -242,7 +244,7 @@ def test_coalescing_stats_and_empty_flush():
 
 
 def test_deferred_get_raises_computation_error_if_unmaterialized():
-    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine())
+    ce = engine.CoalescingPoseidonEngine(inner=engine.TorchPoseidonEngine(device=CPU))
     d = engine.DeferredHashes(ce)  # never enqueued: flush cannot fill it
     with pytest.raises(ComputationError):
         d.get()

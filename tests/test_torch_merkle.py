@@ -20,6 +20,8 @@ from cuzk_tpu_torch import merkle
 from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.utils import errors
 
+CPU = "cpu"  # the CPU tests ask for the plain path by name
+
 CASES = [(n, a) for n in (16, 17) for a in (2, 3, 4, 8)]
 IDS = [f"{n}leaves-arity{a}" for n, a in CASES]
 
@@ -43,7 +45,7 @@ def leaves_np(n: int) -> np.ndarray:
 def trees(n: int, arity: int):
     """(port levels, JAX levels as numpy) for one case, built once."""
     lv = leaves_np(n)
-    port = merkle.build_tree_levels(torch.as_tensor(lv.astype(np.int64)), arity)
+    port = merkle.build_tree_levels(lv, arity, device=CPU)
     ref = [np.asarray(x) for x in jmerkle.build_tree_levels(lv, arity)]
     return port, ref
 
@@ -101,7 +103,8 @@ def test_verify_matches_jax_on_valid_and_tampered(n, arity):
 
 def test_appendix_a_tree_roots():
     ints = fr.ints_to_array
-    root = lambda xs, a: fr.array_to_ints(merkle.merkle_root(ints(xs), a)[None])[0]  # noqa: E731
+    root = lambda xs, a: fr.array_to_ints(  # noqa: E731
+        merkle.merkle_root(ints(xs), a, device=CPU)[None])[0]
     assert root([1, 2], 2) == 0x28C245BFD4D7A4D1EE6BA330337ADC309F013D29C9326C28BA0D3CB47027FCA6
     assert root([1, 2, 3, 4], 2) == 0x236B917229EEEA3EE41C637A7C3CC01F727AC1DC5108C962F564ACC1D8730E44
     assert root([1, 2, 3, 4, 5], 3) == 0x28B819C1EB91377E70ED6E8BBB4C526B9B7ABABAFDCB021E135791FC4F3E25AA
@@ -110,7 +113,10 @@ def test_appendix_a_tree_roots():
                     (8, 0x2CA165C9C68473C20EB293F63DE5986E10A90FB68F6E54BD7932E5166048445D)]:
         assert merkle.empty_hash_int(a) == want
         empty = torch.zeros((0, 16), dtype=torch.int64)
-        assert fr.array_to_ints(merkle.merkle_root(empty, a)[None]) == [want]
+        assert fr.array_to_ints(merkle.merkle_root(empty, a, device=CPU)[None]) == [want]
+        assert fr.array_to_ints(
+            merkle.merkle_root(np.zeros((0, 16)), a, device=CPU)[None]
+        ) == [want]
 
 
 def test_from_levels_of_a_jax_tree():
@@ -118,7 +124,8 @@ def test_from_levels_of_a_jax_tree():
     _, ref = trees(n, arity)
     jtree = jmerkle.NaryMerkleTree(leaves_np(n), jmerkle.MerkleConfig(arity))
     tree = merkle.NaryMerkleTree.from_levels(
-        [np.asarray(x, np.uint32) for x in jtree.levels], arity, n
+        [np.asarray(x, np.uint32) for x in jtree.levels], arity, n,
+        device=CPU,
     )
     assert tree.get_leaf_count() == n
     assert tree.get_tree_height() == jtree.get_tree_height()
@@ -129,14 +136,14 @@ def test_from_levels_of_a_jax_tree():
     assert np.array_equal(sib.numpy(), np.asarray(jsib).astype(np.int64))
     assert tree.verify_batch_proofs(pos, sib, tree.levels[0][[3, 16]])
     with pytest.raises(errors.ValidationError):
-        merkle.NaryMerkleTree.from_levels(ref[:-1], arity, n)
+        merkle.NaryMerkleTree.from_levels(ref[:-1], arity, n, device=CPU)
 
 
 def test_tree_object_and_single_proofs():
     n, arity = 16, 2
     lv = torch.as_tensor(leaves_np(n).astype(np.int64))
     port, _ = trees(n, arity)
-    tree = merkle.NaryMerkleTree.from_levels(port, arity, n)
+    tree = merkle.NaryMerkleTree.from_levels(port, arity, n, device=CPU)
     pos, sib = tree.generate_proof(9)
     assert tree.verify_proof(pos, sib, lv[9])
     assert not tree.verify_proof(pos, sib, lv[8])
@@ -148,7 +155,7 @@ def test_tree_object_and_single_proofs():
 
 def test_single_leaf_tree_compares_digits():
     leaf = torch.as_tensor(leaves_np(1).astype(np.int64))
-    levels = merkle.build_tree_levels(leaf, 2)
+    levels = merkle.build_tree_levels(leaf, 2, device=CPU)
     assert len(levels) == 1
     pos, sib = merkle.generate_proofs(levels, 2, [0])
     assert pos.shape == (1, 0) and sib.shape == (1, 0, 1, 16)

@@ -24,6 +24,8 @@ from cuzk_tpu import native as jnative
 from cuzk_tpu_torch import merkle, native
 from cuzk_tpu_torch.utils import errors
 
+CPU = "cpu"  # the CPU tests ask for the plain path by name
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -42,7 +44,7 @@ def leaves_np(n: int, seed: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def tree(n: int, arity: int):
     lv = leaves_np(n, 900 + 10 * n + arity)
-    return merkle.build_tree_levels(torch.as_tensor(lv.astype(np.int64)), arity)
+    return merkle.build_tree_levels(torch.as_tensor(lv.astype(np.int64)), arity, device=CPU)
 
 
 def batch(n: int, arity: int, idxs):
@@ -63,7 +65,8 @@ def jax_each(pos, sib, lv, root, arity):
 
 
 def port_each(pos, sib, lv, root, arity):
-    return merkle.verify_each(pos, sib, lv, root, arity, dedupe=True)
+    return merkle.verify_each(pos, sib, lv, root, arity, dedupe=True,
+                              device=CPU)
 
 
 # ---------------------------------------------------------------------------
@@ -209,14 +212,14 @@ def test_isolation_pins_the_failing_proof(monkeypatch):
 def test_verify_each_takes_tensors_and_defaults():
     pos, sib, lv, root = batch(41, 4, list(range(30)) + [5, 5, 12, 29])
     t = [torch.as_tensor(x.astype(np.int64)) for x in (sib, lv, root)]
-    got = merkle.verify_each(torch.as_tensor(pos), *t, 4, dedupe=True)
+    got = merkle.verify_each(torch.as_tensor(pos), *t, 4, dedupe=True, device=CPU)
     assert got.dtype == bool and got.shape == (34,) and got.all()
-    assert merkle.verify_all(pos, sib, lv, root, 4)  # k < 64: exact path
+    assert merkle.verify_all(pos, sib, lv, root, 4, device=CPU)  # exact path
     levels = tree(41, 4)
-    obj = merkle.NaryMerkleTree.from_levels(levels, 4, 41)
+    obj = merkle.NaryMerkleTree.from_levels(levels, 4, 41, device=CPU)
     assert obj.verify_batch_proofs(torch.as_tensor(pos), t[0], t[1])
     with pytest.raises(errors.ValidationError, match="disagree"):
-        merkle.verify_each(pos, sib[:, :, :2], lv, root, 4)
+        merkle.verify_each(pos, sib[:, :, :2], lv, root, 4, device=CPU)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +254,7 @@ def test_gate_declines_int64_digits_a_uint32_cast_would_alias(where, shift):
         root[4] += shift
     assert merkle._dedup_pack(pos, sib, lv, root, 2) is None
     got = port_each(pos, sib, lv, root, 2)
-    plain = merkle.verify_proofs(pos, sib, lv, root, 2).numpy()
+    plain = merkle.verify_proofs(pos, sib, lv, root, 2, device=CPU).numpy()
     assert np.array_equal(got, plain)
     assert got.tolist() == ([False] * 8 if where == "root" else
                             [True] * 5 + [False] + [True] * 2)
@@ -282,4 +285,5 @@ def test_gate_declines_arity_above_8():
     sib8 = np.zeros((k, h, 7, 16), np.uint32)
     assert merkle._dedup_pack(pos, sib8, leaves, root, 8) is not None
     with pytest.raises(errors.ValidationError, match="arity"):
-        merkle.verify_each(pos, sib9, leaves, root, 9, dedupe=True)
+        merkle.verify_each(pos, sib9, leaves, root, 9, dedupe=True,
+                           device=CPU)

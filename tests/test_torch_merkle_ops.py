@@ -20,6 +20,8 @@ from cuzk_tpu_torch import merkle
 from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.utils import errors, io
 
+CPU = "cpu"  # the CPU tests ask for the plain path by name
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -52,7 +54,7 @@ def assert_levels(port, ref):
 @pytest.mark.parametrize("arity,n", [(2, 11), (4, 16), (8, 21)])
 def test_update_leaves_match_rebuild_and_jax(arity, n):
     xs = leaves_np(n, 40 + n)
-    tree = merkle.NaryMerkleTree(t64(xs), merkle.MerkleConfig(arity))
+    tree = merkle.NaryMerkleTree(t64(xs), merkle.MerkleConfig(arity), device=CPU)
     before = [lv.clone() for lv in tree.levels]
     idxs = [0, n - 1, n // 2]  # includes the group at the padded boundary
     vals = leaves_np(3, 50 + n)
@@ -61,7 +63,7 @@ def test_update_leaves_match_rebuild_and_jax(arity, n):
     assert tree.update_leaves(idxs, t64(vals))
     xs2 = xs.copy()
     xs2[idxs] = vals
-    assert_levels(tree.levels, merkle.build_tree_levels(t64(xs2), arity))
+    assert_levels(tree.levels, merkle.build_tree_levels(t64(xs2), arity, device=CPU))
     assert_levels(new, tree.levels)
     jtree = jmerkle.NaryMerkleTree(xs, jmerkle.MerkleConfig(arity))
     assert jtree.update_leaves(idxs, vals)
@@ -70,7 +72,7 @@ def test_update_leaves_match_rebuild_and_jax(arity, n):
 
 def test_update_leaf_and_insert_leaf_match_the_oracle():
     xs = leaves_np(4, 7)
-    tree = merkle.NaryMerkleTree(t64(xs))
+    tree = merkle.NaryMerkleTree(t64(xs), device=CPU)
     new_val = leaves_np(1, 8)[0]
     assert tree.update_leaf(1, t64(new_val))
     xs2 = xs.copy()
@@ -88,19 +90,19 @@ def test_insert_leaf_into_padded_slots_matches_rebuild(arity):
     rebuild (and the JAX package); for arity 2 the fourth crosses the
     capacity and rebuilds."""
     xs = leaves_np(5, 60 + arity)
-    tree = merkle.NaryMerkleTree(t64(xs), merkle.MerkleConfig(arity))
+    tree = merkle.NaryMerkleTree(t64(xs), merkle.MerkleConfig(arity), device=CPU)
     jtree = jmerkle.NaryMerkleTree(xs, jmerkle.MerkleConfig(arity))
     for i, v in enumerate(leaves_np(4, 70 + arity)):
         assert tree.insert_leaf(t64(v)) and jtree.insert_leaf(v)
         xs = np.concatenate([xs, v[None]])
         assert tree.get_leaf_count() == len(xs) == jtree.get_leaf_count()
-        assert_levels(tree.levels, merkle.build_tree_levels(t64(xs), arity))
+        assert_levels(tree.levels, merkle.build_tree_levels(t64(xs), arity, device=CPU))
         if i in (0, 3):
             assert_levels(tree.levels, jtree.levels)
 
 
 def test_update_refuses_bad_inputs_and_keeps_the_tree():
-    tree = merkle.NaryMerkleTree(t64(leaves_np(6, 80)))
+    tree = merkle.NaryMerkleTree(t64(leaves_np(6, 80)), device=CPU)
     root_before = tree.root_int()
     v = t64(leaves_np(1, 81))
     assert not tree.update_leaves([1, 1], t64(leaves_np(2, 82)))  # duplicates
@@ -116,7 +118,7 @@ def test_update_refuses_bad_inputs_and_keeps_the_tree():
         merkle.update_tree_levels(tree.levels, 2, [8], v)  # 8 padded rows
     with pytest.raises(IndexError, match="-2"):
         merkle.update_tree_levels(tree.levels, 2, [-2], v)
-    assert not merkle.NaryMerkleTree().update_leaves([0], v)
+    assert not merkle.NaryMerkleTree(device=CPU).update_leaves([0], v)
     assert tree.root_int() == root_before
 
 
@@ -127,7 +129,7 @@ def test_update_refuses_bad_inputs_and_keeps_the_tree():
 @pytest.mark.parametrize("sizes", [(5, 5, 5), (2, 4)], ids=["equal", "mixed"])
 def test_build_batch_trees_matches_jax(sizes):
     sets = [leaves_np(n, 90 + i) for i, n in enumerate(sizes)]
-    trees = merkle.build_batch_trees([t64(s) for s in sets], arity=2)
+    trees = merkle.build_batch_trees([t64(s) for s in sets], arity=2, device=CPU)
     jtrees = jmerkle.build_batch_trees(sets, arity=2)
     assert len(trees) == len(sets)
     for s, t, jt in zip(sets, trees, jtrees):
@@ -135,7 +137,7 @@ def test_build_batch_trees_matches_jax(sizes):
         assert_levels(t.levels, jt.levels)
         pos, sib = t.generate_batch_proofs([0, len(s) - 1])
         assert t.verify_batch_proofs(pos, sib, t.levels[0][[0, len(s) - 1]])
-    assert merkle.build_batch_trees([], arity=2) == []
+    assert merkle.build_batch_trees([], arity=2, device=CPU) == []
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +146,7 @@ def test_build_batch_trees_matches_jax(sizes):
 
 def test_trees_cross_load_between_the_packages(tmp_path):
     xs = leaves_np(10, 100)
-    tree = merkle.NaryMerkleTree(t64(xs), merkle.MerkleConfig(4))
+    tree = merkle.NaryMerkleTree(t64(xs), merkle.MerkleConfig(4), device=CPU)
     port_file = str(tmp_path / "port.npz")
     merkle.save_tree(tree, port_file)
     jtree = jmerkle.load_tree(port_file, verify=True)
@@ -161,28 +163,28 @@ def test_trees_cross_load_between_the_packages(tmp_path):
     pos, sib = loaded.generate_batch_proofs([0, 7, 9])
     assert loaded.verify_batch_proofs(pos, sib, loaded.levels[0][[0, 7, 9]])
     with pytest.raises(errors.ValidationError):
-        merkle.save_tree(merkle.NaryMerkleTree(), port_file)
+        merkle.save_tree(merkle.NaryMerkleTree(device=CPU), port_file)
 
 
 def test_load_verify_catches_a_tampered_level(tmp_path):
-    tree = merkle.NaryMerkleTree(t64(leaves_np(9, 110)))
+    tree = merkle.NaryMerkleTree(t64(leaves_np(9, 110)), device=CPU)
     path = str(tmp_path / "tree.npz")
     merkle.save_tree(tree, path)
-    assert merkle.load_tree(path, verify=True).root_int() == tree.root_int()
+    assert merkle.load_tree(path, verify=True, device=CPU).root_int() == tree.root_int()
     with np.load(path) as data:
         payload = {k: data[k].copy() for k in data.files}
     payload["level_1"][0, 0] ^= 1  # intermediate level, root untouched
     bad = str(tmp_path / "bad.npz")
     np.savez_compressed(bad, **payload)
     with pytest.raises(errors.ComputationError):
-        merkle.load_tree(bad, verify=True)
-    assert merkle.load_tree(bad).get_leaf_count() == 9  # trusted fast path
+        merkle.load_tree(bad, verify=True, device=CPU)
+    assert merkle.load_tree(bad, device=CPU).get_leaf_count() == 9  # trusted fast path
 
 
 def test_save_refuses_digits_a_uint32_cast_would_alias(tmp_path):
     leaves = t64(leaves_np(4, 120))
     leaves[2, 3] += 1 << 32
-    tree = merkle.NaryMerkleTree(leaves)
+    tree = merkle.NaryMerkleTree(leaves, device=CPU)
     with pytest.raises(errors.ValidationError, match="2\\^32"):
         merkle.save_tree(tree, str(tmp_path / "t.npz"))
 
@@ -193,10 +195,10 @@ def test_save_refuses_digits_a_uint32_cast_would_alias(tmp_path):
 
 def test_proof_structure_compare_and_print_match_jax(capsys):
     xs = leaves_np(4, 130)
-    t1, t2 = merkle.NaryMerkleTree(t64(xs)), merkle.NaryMerkleTree(t64(xs))
-    t3 = merkle.NaryMerkleTree(t64(xs[:2]))
+    t1, t2 = merkle.NaryMerkleTree(t64(xs), device=CPU), merkle.NaryMerkleTree(t64(xs), device=CPU)
+    t3 = merkle.NaryMerkleTree(t64(xs[:2]), device=CPU)
     assert merkle.compare_trees(t1, t2) and not merkle.compare_trees(t1, t3)
-    assert not merkle.compare_trees(t1, merkle.NaryMerkleTree())
+    assert not merkle.compare_trees(t1, merkle.NaryMerkleTree(device=CPU))
     pos, sib = t1.generate_batch_proofs([1])
     assert merkle.validate_proof_structure(pos[0], sib[0], 2)
     assert not merkle.validate_proof_structure(pos[0], sib[0], 3)
@@ -205,12 +207,12 @@ def test_proof_structure_compare_and_print_match_jax(capsys):
     assert not merkle.validate_proof_structure(bad, sib[0], 2)
     jt = jmerkle.NaryMerkleTree(xs)
     assert merkle.print_tree(t1) == jmerkle.print_tree(jt)
-    assert merkle.print_tree(merkle.NaryMerkleTree()) == "(empty tree)"
+    assert merkle.print_tree(merkle.NaryMerkleTree(device=CPU)) == "(empty tree)"
     assert "root" in capsys.readouterr().out
 
 
 def test_benchmark_tree_fills_the_result():
-    r = merkle.benchmark_tree(64, 4, num_proofs=8)
+    r = merkle.benchmark_tree(64, 4, num_proofs=8, device=CPU)
     assert (r.leaf_count, r.arity) == (64, 4)
     assert r.tree_height == merkle.tree_height(64, 4) == 4
     assert r.build_time_ms > 0 and r.proof_time_ms > 0 and r.verify_time_ms > 0

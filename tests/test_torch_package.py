@@ -30,6 +30,8 @@ from cuzk_tpu_torch.ops import _build, poseidon_cuda
 from cuzk_tpu_torch.utils import device as device_mod
 from cuzk_tpu_torch.utils import errors, stats
 
+CPU = "cpu"  # the CPU tests ask for the plain path by name
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "cuzk_tpu_torch",
@@ -148,14 +150,15 @@ def test_timed_returns_result_and_seconds():
 def test_build_failure_propagates(monkeypatch, tmp_path):
     """A compiler error surfaces as KernelBuildError with its output, and a
     wrapper given a non-CPU tensor raises it rather than running plain."""
-    import torch.utils.cpp_extension as cpp_extension
 
-    def broken_load(**kwargs):
-        raise RuntimeError("nvcc: error: simulated compiler failure")
+    def broken_nvcc(cmd, **kwargs):
+        return subprocess.CompletedProcess(
+            cmd, 1, stdout="", stderr="nvcc: error: simulated compiler failure")
 
     monkeypatch.setattr(device_mod, "require_cuda", lambda: None)
     monkeypatch.setattr(_build, "require_cuda", lambda: None)
-    monkeypatch.setattr(cpp_extension, "load", broken_load)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", broken_nvcc)
     monkeypatch.setattr(_build, "_kernels", None)
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     with pytest.raises(errors.KernelBuildError, match="simulated compiler"):
@@ -167,8 +170,10 @@ def test_build_failure_propagates(monkeypatch, tmp_path):
 
 
 def test_header_constants_are_the_oracles():
-    with open(os.path.join(_build.CSRC_DIR, "fr254.cuh")) as f:
-        text = f.read()
+    text = ""
+    for name in _build.HEADERS:
+        with open(os.path.join(_build.CSRC_DIR, name)) as f:
+            text += f.read()
 
     def limbs(name):
         body = re.search(rf"#define {name} \\\n(.*)\\\n(.*)\n", text)
@@ -315,4 +320,4 @@ def test_scheduler_build_failure_propagates(monkeypatch, tmp_path):
     sib = np.zeros((64, 2, 1, 16), np.uint32)
     leaves = np.zeros((64, 16), np.uint32)
     with pytest.raises(errors.KernelBuildError):
-        merkle.verify_each(pos, sib, leaves, leaves[0], 2)
+        merkle.verify_each(pos, sib, leaves, leaves[0], 2, device=CPU)
