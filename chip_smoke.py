@@ -27,7 +27,22 @@ their public entry points at the reference's published sizes:
   batches, and a latency sweep of each kernel under each G beside the
   automatic choice.  Phase 1 prints ptxas's record
   of every kernel (registers, stack frame, spills) and fails if K1 or K3
-  uses local memory.
+  uses local memory;
+- slice 5 (phase 15): the 1,048,576-leaf arity-8 tree (padded to 8^7 =
+  2,097,152 rows, 7 K1 launches) built on the card, K1 at each of those
+  launches' shapes and every level of the tree held against the plain
+  sponge, and K3 on 5,000 of its proofs (7 levels at arity 8; one with its
+  leaf, one with a sibling and one with a position tampered) against the
+  plain verify under every G; then built sharded
+  (``parallel.distributed``) by 1 rank and by 4 ranks that share the card,
+  each rank a fresh interpreter of this file (``--sharded-rank``) started
+  by ``bench.mp_scaling.launch``: every rank's root and levels (by SHA-256
+  of each block) equal to the single-card build's, 5,000 sharded proofs
+  equal to ``merkle.generate_proofs`` and verified by one K3 launch (its
+  verdicts on the tampered proofs equal to the plain verify's), and
+  1,048,576 sharded pair hashes equal to ``hash_pair_cuda`` on the whole
+  batch.  Ranks sharing one card are time-sliced: their times are an
+  overhead reading, not a speed-up.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; in slice 3 each main-path call is counted alone and must make
@@ -42,7 +57,13 @@ counts (``slice3_sponge_launches``, ``slice3_verify_launches``) and times
 (dedup against the verify kernel at 5,000 and 50,000 proofs from the host,
 the tree method against the verify kernel on proofs on the card, the device
 program against its plain version, updates against a rebuild, batch
-trees), the slice-4 sweep and the ptxas record; the last line is
+trees), the slice-4 sweep, the slice-5 times (``build_1m_arity8_ms``; its K1
+sum with the bound of those 7 launches, the share reached and the plain
+sponge's time; K3 at the 1M tree's 5,000 proofs likewise,
+``verify_1m_5k_*``; ``sharded_build_1m_ms`` per rank count with stages and
+backend, ``sharded_proofs_5k_ms``) and the ptxas record.  Each kernel's ``launches``
+is the sum over the slices' main-path runs (``launches_by_slice`` splits
+it; slice 5's counts add every rank's).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 There is no CPU fallback: without a CUDA device the script exits 1 before
@@ -53,6 +74,7 @@ answers against the golden values below, which
 ``cuzk_tpu.native``.
 """
 
+import hashlib
 import itertools
 import json
 import os
@@ -122,6 +144,14 @@ IMAD_PER_CLOCK_PER_SM = 64
 MULTIPLIES_PER_PERMUTATION = 2 * 44_096
 # Root of generate_test_leaves(50000, 42) at arity 4.
 ROOT_50K_ARITY4 = 0x1DBAA7D03762117ABE6540A328C508C2506446C1300316FC4C9537DCE3490EFE
+# Root of generate_test_leaves(262144, 42) at arity 8: node 0 of level 6 of
+# the tree of generate_test_leaves(1048576, 42), whose first 8^6 leaves
+# those are.
+ROOT_262144_ARITY8 = 0x1232000CF94C4A090CBEA211DA7690E468A0CCA7EC6A799FDEFC83B686828A56
+# Slice 5: the largest published build, its proofs and the sharded hashes.
+LEAVES_1M, ARITY_1M, PROOFS_1M, PAIRS_1M = 1_048_576, 8, 5_000, 1_048_576
+SHARDED_RANKS = (1, 4)
+TAMPERED_1M = (17, 1234, 4321)  # leaf, sibling, position
 
 
 class SmokeFailure(RuntimeError):
@@ -136,6 +166,303 @@ def check(cond: bool, what: str) -> None:
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes: two processes compare blocks by it."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def proof_indices() -> np.ndarray:
+    return np.random.default_rng(42).integers(0, LEAVES_1M, PROOFS_1M)
+
+
+def pair_inputs():
+    rng = np.random.default_rng(7)
+    return tuple(rng.integers(0, 1 << 16, (PAIRS_1M, 16), dtype=np.uint32)
+                 for _ in range(2))
+
+
+def tamper_1m(pos, sib, proved):
+    """Phase 15's proofs with proof 17's leaf, a sibling of proof 1234 and
+    a position of proof 4321 changed: exactly :data:`TAMPERED_1M` must
+    fail."""
+    pos, sib, proved = pos.clone(), sib.clone(), proved.clone()
+    proved[TAMPERED_1M[0], 0] ^= 1
+    sib[TAMPERED_1M[1], 3, 5, 7] ^= 1
+    pos[TAMPERED_1M[2], 6] = (pos[TAMPERED_1M[2], 6] + 1) % ARITY_1M
+    return pos, sib, proved
+
+
+def sharded_rank(argv) -> None:
+    """One rank of phase 15: ``--sharded-rank <ranks> <rank> <dir>``.
+    Joins the process group on the card, runs the sharded build, proofs
+    and pair hashes of the 1M-leaf arity-8 tree and prints one ``RESULT``
+    line of digests, times and launch counts.  Any failure raises."""
+    ranks, rank = int(argv[0]), int(argv[1])
+    from cuzk_tpu_torch import merkle
+    from cuzk_tpu_torch.bench import mp_scaling
+    from cuzk_tpu_torch.field import fr
+    from cuzk_tpu_torch.ops import poseidon_cuda as pc
+    from cuzk_tpu_torch.parallel import distributed
+
+    mesh = mp_scaling.join_mesh(os.path.join(argv[2], f"store{ranks}"),
+                                ranks, rank)
+    dev = mesh.device
+    leaves = np.load(os.path.join(argv[2], "leaves.npy"))
+    idx = proof_indices()
+    proved = fr.as_digits(leaves[idx], device=dev)
+    left, right = pair_inputs()
+
+    def wall_ms(fn, iters=3):
+        fn()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t) / iters * 1e3
+
+    timing = mp_scaling.time_build(leaves, ARITY_1M, mesh, iters=3)
+
+    # The main path, counted alone: build, proofs, one K3 launch, hashes.
+    pc.reset_launch_counts()
+    sharded, replicated = distributed.sharded_build_levels(leaves, ARITY_1M, mesh)
+    build_launches = pc.launch_counts["sponge"]
+    pos, sib = distributed.sharded_generate_proofs(sharded, replicated,
+                                                   ARITY_1M, idx, mesh)
+    root = replicated[-1][0]
+    ok = merkle.verify_proofs(pos, sib, proved, root, ARITY_1M)
+    pairs = distributed.sharded_hash_pairs(left, right, mesh)
+    torch.cuda.synchronize(dev)
+    counts = dict(pc.launch_counts)
+
+    check(bool(ok.all()), f"rank {rank}: sharded proofs failed to verify")
+    verdicts = merkle.verify_proofs(*tamper_1m(pos, sib, proved), root, ARITY_1M)
+    flipped = torch.nonzero(~verdicts).flatten().tolist()
+    check(flipped == sorted(TAMPERED_1M),
+          f"rank {rank}: tampered {TAMPERED_1M} flipped {flipped}")
+    proofs_ms = wall_ms(lambda: distributed.sharded_generate_proofs(
+        sharded, replicated, ARITY_1M, idx, mesh))
+    pairs_ms = wall_ms(lambda: distributed.sharded_hash_pairs(left, right, mesh))
+    print("RESULT " + json.dumps({
+        "rank": rank, "backend": mesh.backend, "shared_card": mesh.shared_card,
+        "build_ms": timing["build_ms"], "stages": timing["stages"],
+        "sponge_launches_per_build": timing["sponge_launches_per_build"],
+        "build_launches": build_launches, "launches": counts,
+        "root": fr.array_to_ints(root)[0],
+        "sharded": [digest(lv) for lv in sharded],
+        "replicated": [digest(lv) for lv in replicated],
+        "pos": digest(pos), "sib": digest(sib), "pairs": digest(pairs),
+        "verdicts": digest(verdicts.to(torch.uint8)),
+        "proofs_ms": proofs_ms, "pairs_ms": pairs_ms,
+    }), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def sharded_phase(dev, name_power, bound):
+    """Phase 15: the 1M-leaf arity-8 build on the card, every level of it
+    held against the plain sponge and K3 on its proofs against the plain
+    verify; then the sharded build, proofs and pair hashes at each of
+    :data:`SHARDED_RANKS`, every rank held against the single-card
+    results.  ``bound(permutations, nbytes)`` is the card's bound.  Returns
+    the phase's launch counts (this process's and every rank's main-path
+    runs), its numbers for the JSON line, and K1's and K3's largest
+    differences from their plain versions."""
+    from cuzk_tpu_torch import merkle, poseidon
+    from cuzk_tpu_torch.bench import mp_scaling
+    from cuzk_tpu_torch.bench import run as bench_run
+    from cuzk_tpu_torch.field import fr
+    from cuzk_tpu_torch.ops import poseidon_cuda as pc
+    from cuzk_tpu_torch.parallel import distributed
+    from cuzk_tpu_torch.utils.stats import cuda_time_ms
+
+    check(bench_run.NORTH_STAR_BUILD == (LEAVES_1M, ARITY_1M), "1M config")
+    leaves_1m = merkle.generate_test_leaves(LEAVES_1M, 42)
+    leaves_1m_dev = leaves_1m.to(dev)
+    merkle.build_tree_levels(leaves_1m_dev, ARITY_1M)  # warm
+    torch.cuda.synchronize()
+    pc.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    levels_1m = merkle.build_tree_levels(leaves_1m_dev, ARITY_1M)
+    end.record()
+    end.synchronize()
+    build_1m_ms = start.elapsed_time(end)
+    slice5 = dict(pc.launch_counts)
+    h_1m = len(levels_1m) - 1
+    check(slice5["sponge"] == h_1m == 7 and levels_1m[0].shape[0] == 8 ** 7,
+          f"1M build: launches {slice5}, {h_1m} levels")
+    check(fr.array_to_ints(levels_1m[-2][0])[0] == ROOT_262144_ARITY8,
+          "node 0 of level 6 of the 1M tree != the 262,144-leaf root")
+    root_1m = fr.array_to_ints(levels_1m[-1][0])[0]
+
+    # K1 at each of the build's 7 shapes (262,144 down to 1 group of 8)
+    # against the plain sponge on the same rows, and the build's own next
+    # level against it too: every level up to the root is held by the plain
+    # version.  The plain sponge runs in pieces of 65,536 groups.
+    build_1m_k1_ms = build_1m_plain_ms = 0.0
+    k1_err = k1_perms = k1_bytes = 0
+    for lv, above in zip(levels_1m[:-1], levels_1m[1:]):
+        groups = lv.view(-1, ARITY_1M, fr.NDIGITS)
+        lv_limbs = fr.digits_to_limbs(lv).contiguous().view(-1, ARITY_1M, fr.NLIMBS)
+        build_1m_k1_ms += cuda_time_ms(
+            lambda x=lv_limbs: pc.sponge_limbs(x, poseidon.DS_MULTIPLE), iters=3)
+        start.record()
+        plain = torch.cat([poseidon.hash_multiple(piece)
+                           for piece in groups.split(65536)])
+        end.record()
+        end.synchronize()
+        build_1m_plain_ms += start.elapsed_time(end)
+        got = fr.limbs_to_digits(pc.sponge_limbs(lv_limbs, poseidon.DS_MULTIPLE))
+        k1_err = max(k1_err, max_abs_err(got, plain), max_abs_err(above, plain))
+        k1_perms += groups.shape[0] * (ARITY_1M // 2)
+        k1_bytes += (lv.shape[0] + groups.shape[0]) * 4 * fr.NLIMBS
+        del plain, got, lv_limbs
+    check(k1_err == 0, f"K1 disagrees with the plain sponge on the 1M tree's "
+          f"levels (max err {k1_err})")
+    k1_bound_ms, _ = bound(k1_perms, k1_bytes)
+    print(f"phase 15 build: 1,048,576 leaves arity 8 (padded to 8^7) -> root "
+          f"{root_1m:#x}, level 6 node 0 golden, K1 and every level = the "
+          f"plain sponge at {[lv.shape[0] // ARITY_1M for lv in levels_1m[:-1]]} "
+          f"groups; warm build {build_1m_ms:.3f} ms, its 7 K1 launches "
+          f"{build_1m_k1_ms:.3f} ms in sum (bound {k1_bound_ms:.3f} ms, share "
+          f"{k1_bound_ms / build_1m_k1_ms:.3f}; plain {build_1m_plain_ms:.3f} "
+          f"ms) on {name_power}", flush=True)
+
+    # K3 at this slice's shape (5,000 proofs of 7 levels at arity 8: 4,997
+    # valid, three tampered), under every G, against the plain verify.
+    idx_1m = torch.as_tensor(proof_indices(), device=dev)
+    want_pos, want_sib = merkle.generate_proofs(levels_1m, ARITY_1M, idx_1m)
+    want_proofs = (digest(want_pos), digest(want_sib))
+    proved = levels_1m[0][idx_1m]
+    root = levels_1m[-1][0]
+    check(want_pos.shape == (PROOFS_1M, h_1m), "1M proofs' shape")
+    proofs = tamper_1m(want_pos, want_sib, proved)
+    start.record()
+    plain_ok = merkle._verify_plain(*proofs, root, ARITY_1M)
+    end.record()
+    end.synchronize()
+    verify_1m_plain_ms = start.elapsed_time(end)
+    check(torch.nonzero(~plain_ok).flatten().tolist() == sorted(TAMPERED_1M),
+          f"plain verify of the 1M proofs: exactly {TAMPERED_1M} must fail")
+    k3_err = max_abs_err(merkle.verify_proofs(*proofs, root, ARITY_1M), plain_ok)
+    p, s, l = proofs
+    limbs = (p.clamp(-1, ARITY_1M).to(torch.int32).contiguous(),
+             fr.digits_to_limbs(s).contiguous(),
+             fr.digits_to_limbs(l).contiguous(),
+             fr.digits_to_limbs(root).contiguous())
+    for g in pc.LANES:
+        k3_err = max(k3_err, max_abs_err(
+            pc.verify_limbs(*limbs, ARITY_1M, lanes=g), plain_ok))
+    check(k3_err == 0, "K3 disagrees with the plain verify on the 1M proofs")
+    want_verdicts = digest(plain_ok.to(torch.uint8))
+    verify_1m_ms = cuda_time_ms(
+        lambda: merkle.verify_proofs(*proofs, root, ARITY_1M), iters=3)
+    k3_bound_ms, _ = bound(
+        PROOFS_1M * h_1m * (ARITY_1M // 2),
+        want_pos.numel() * 4 + (want_sib.numel() + proved.numel()) * 2 + 32
+        + PROOFS_1M)
+    print(f"phase 15 verify: {PROOFS_1M} proofs x {h_1m} levels arity 8, "
+          f"{TAMPERED_1M} tampered (leaf, sibling, position), K3 = plain "
+          f"at every G {list(pc.LANES)}; K3 {verify_1m_ms:.3f} ms (bound "
+          f"{k3_bound_ms:.3f} ms, share {k3_bound_ms / verify_1m_ms:.3f}; "
+          f"plain {verify_1m_plain_ms:.3f} ms) on {name_power}", flush=True)
+
+    # What each rank must report: digests of its blocks of the single-card
+    # levels, of the proofs, of the tampered proofs' verdicts (the plain
+    # verify's) and of its block of the whole batch's hashes.
+    left, right = pair_inputs()
+    want_pairs = pc.hash_pair_cuda(fr.as_digits(left, device=dev),
+                                   fr.as_digits(right, device=dev))
+
+    def block(t, rank, ranks):
+        rows = t.shape[0] // ranks
+        return t[rank * rows:(rank + 1) * rows]
+
+    sharded_1m = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        np.save(os.path.join(workdir, "leaves.npy"),
+                leaves_1m.numpy().astype(np.uint32))
+        for ranks in SHARDED_RANKS:
+            outs = mp_scaling.launch(
+                [[sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                  str(ranks), str(rank), workdir] for rank in range(ranks)],
+                timeout_s=600, env=mp_scaling.worker_env())
+            results = [mp_scaling.result_line(out) for out in outs]
+            check(all(r is not None for r in results),
+                  f"{ranks} ranks: a rank printed no RESULT:\n" + "\n".join(outs))
+            backend = distributed.choose_backend(ranks)
+            shared = distributed.ranks_share_a_card(ranks)
+            for rank, res in enumerate(results):
+                who = f"{ranks} ranks, rank {rank}"
+                check(res["rank"] == rank and res["backend"] == backend
+                      and res["shared_card"] == shared, f"{who}: mesh {res}")
+                check(res["root"] == root_1m, f"{who}: root {res['root']:#x}")
+                n_sh, n_rep = len(res["sharded"]), len(res["replicated"])
+                check(n_sh - 1 + n_rep == len(levels_1m), f"{who}: level count")
+                for i, got in enumerate(res["sharded"]):
+                    check(got == digest(block(levels_1m[i], rank, ranks)),
+                          f"{who}: sharded level {i} differs")
+                for i, got in enumerate(res["replicated"]):
+                    check(got == digest(levels_1m[n_sh - 1 + i]),
+                          f"{who}: replicated level {i} differs")
+                check((res["pos"], res["sib"]) == want_proofs,
+                      f"{who}: sharded proofs != merkle.generate_proofs")
+                check(res["verdicts"] == want_verdicts,
+                      f"{who}: K3's verdicts on the tampered proofs != plain")
+                check(res["pairs"] == digest(block(want_pairs, rank, ranks)),
+                      f"{who}: sharded pair hashes != hash_pair_cuda")
+                # Local levels plus the replicated tail, then one K1 launch
+                # for this rank's pairs and one K3 launch for the proofs.
+                check(res["build_launches"] == h_1m
+                      == res["sponge_launches_per_build"] == n_sh - 1 + n_rep - 1,
+                      f"{who}: build launches {res['build_launches']}")
+                want_counts = dict.fromkeys(res["launches"], 0)
+                want_counts.update(sponge=h_1m + 1, verify=1)
+                check(res["launches"] == want_counts,
+                      f"{who}: launches {res['launches']}, want {want_counts}")
+                for name, n in res["launches"].items():
+                    slice5[name] += n
+            sharded_1m[str(ranks)] = {
+                "backend": backend, "shared_card": shared,
+                "build_ms": [r["build_ms"] for r in results],
+                "stages": results[0]["stages"],
+                "local_levels": len(results[0]["sharded"]) - 1,
+                "tail_levels": len(results[0]["replicated"]) - 1,
+                "sponge_launches_per_build": results[0]["sponge_launches_per_build"],
+                "proofs_5k_ms": [r["proofs_ms"] for r in results],
+                "hash_pairs_1m_ms": [r["pairs_ms"] for r in results],
+            }
+            row = sharded_1m[str(ranks)]
+            print(f"phase 15 sharded, {ranks} rank(s) on one card ({backend}): "
+                  f"roots, {len(levels_1m)} levels, {PROOFS_1M} proofs (K3: all "
+                  f"true; tampered: the plain verify's verdicts) and {PAIRS_1M} "
+                  f"pair hashes = single card in every rank; build "
+                  f"{max(row['build_ms']):.3f} ms (slowest rank; "
+                  f"{row['local_levels']} local + {row['tail_levels']} tail K1 "
+                  f"launches a rank; main-path launches of every rank "
+                  f"{results[0]['launches']}), stages {row['stages']}, proofs "
+                  f"{max(row['proofs_5k_ms']):.3f} ms, hashes "
+                  f"{max(row['hash_pairs_1m_ms']):.3f} ms on {name_power}",
+                  flush=True)
+    for name in ("sponge", "verify"):
+        check(slice5[name] > 0, f"kernel {name} never ran in the slice-5 path")
+    numbers = {
+        "build_1m_arity8_ms": build_1m_ms,
+        "build_1m_arity8_k1_ms": build_1m_k1_ms,
+        "build_1m_arity8_k1_bound_ms": k1_bound_ms,
+        "build_1m_arity8_k1_share": k1_bound_ms / build_1m_k1_ms,
+        "build_1m_arity8_k1_plain_ms": build_1m_plain_ms,
+        "verify_1m_5k_k3_ms": verify_1m_ms,
+        "verify_1m_5k_k3_bound_ms": k3_bound_ms,
+        "verify_1m_5k_k3_share": k3_bound_ms / verify_1m_ms,
+        "verify_1m_5k_plain_ms": verify_1m_plain_ms,
+        "sharded_build_1m_ms": sharded_1m,
+        "sharded_proofs_5k_ms": max(
+            sharded_1m[str(SHARDED_RANKS[-1])]["proofs_5k_ms"]),
+    }
+    return slice5, numbers, k1_err, k3_err
 
 
 def main() -> None:
@@ -749,31 +1076,41 @@ def main() -> None:
     resident = {k: pc.resident_states(dev, k) for k in ("sponge", "verify")}
     print(f"phase 14 resident states at G = 1: {resident}", flush=True)
 
+    # (15) Slice 5: the 1,048,576-leaf arity-8 tree on the card, then built
+    # sharded by 1 rank and by 4 ranks that share the card.
+    slice5, slice5_numbers, k1_err_1m, k3_err_1m = sharded_phase(
+        dev, name_power, bound)
+    k1_err, k3_err = max(k1_err, k1_err_1m), max(k3_err, k3_err_1m)
+
     k1_bound, k1_by = bound(65536, 65536 * 3 * 32)
     k3_perms = n_proofs * h * ((arity + 1) // 2)
     k3_bound, k3_by = bound(k3_perms, pos.numel() * 4 + sib.numel() * 2
                             + proved.numel() * 2 + 32 + n_proofs)
     k4_bound, k4_by = bound(n_perm, n_perm * 6 * 32)
     k1_lanes = pc.choose_lanes(65536, resident["sponge"])
+    by_slice = {"1": launches, "2": slice2, "3": slice3, "5": slice5}
     record = {"kernels": [
         {"name": "sponge", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
          "replaces": "cuzk_tpu/ops/poseidon_pallas.py:488",
-         "launches": launches["sponge"], "max_abs_err": k1_err,
+         "launches": sum(s["sponge"] for s in by_slice.values()),
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "share": k1_bound / k1_ms, "lanes": k1_lanes,
          "library_ms": None},
         {"name": "verify", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
          "replaces": "cuzk_tpu/ops/poseidon_pallas.py:385",
-         "launches": launches["verify"], "max_abs_err": k3_err,
+         "launches": sum(s["verify"] for s in by_slice.values()),
+         "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "share": k3_bound / k3_ms, "lanes": k3_lanes,
          "library_ms": None},
         {"name": "permutation", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
          "replaces": "cuzk_tpu/ops/poseidon_pallas.py:795",
-         "launches": slice2["permutation"], "max_abs_err": k4_err,
+         "launches": sum(s["permutation"] for s in by_slice.values()),
+         "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "share": k4_bound / k4_ms, "lanes": 1,
          "library_ms": None},
@@ -794,7 +1131,8 @@ def main() -> None:
         "k3_full_50k_ms": iso["full_exact_ms"],
         "update_64_ms": update_ms, "rebuild_50k_ms": rebuild_ms,
         "batch_trees_16x4096_ms": batch_ms, "single_trees_16x4096_ms": singles_ms,
-        "build_50k_k1_ms": build_k1_ms, "sweep": sweep,
+        "build_50k_k1_ms": build_k1_ms, "launches_by_slice": by_slice,
+        **slice5_numbers, "sweep": sweep,
         "resident_states": resident, "clocks_max_sm_mhz": clock_hz / 1e6,
         "ptxas": kernels.ptxas, "card": name_power}
     print(json.dumps(record), flush=True)
@@ -804,6 +1142,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(sys.argv[2:])
+        sys.exit(0)
     t0 = time.perf_counter()
     main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

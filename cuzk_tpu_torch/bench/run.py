@@ -1,15 +1,16 @@
 """Benchmark suite of the port: Poseidon hashing, Merkle builds, proofs,
-updates and trees.
+updates, trees and the sharded build's scaling.
 
-The counterpart of the Poseidon, tree-build, proofs, updates and trees
-suites of ``cuzk_tpu.bench.run``, on one Hopper card:
+The counterpart of the Poseidon, tree-build, proofs, updates, trees and
+scaling suites of ``cuzk_tpu.bench.run``, on one Hopper card:
 
 - the reference's ``poseidon_benchmark`` configs {10K x 512, 100K x 1024,
   1M x 4096} (benchmark.cpp:213-235), single and pair hashing: small
   batches through the coalescing engine over the CUDA engine, as calls
   arrive from a host one batch at a time, large batches synchronously on
   tensors already on the card; ``--sync`` gives the device-loop rows;
-- the Merkle build (50K leaves, arity 4 by default);
+- the Merkle build (50K leaves, arity 4 by default), then the largest
+  published build, 1,048,576 leaves at arity 8;
 - ``proofs``: proof generation, then the batch verify of ``--proofs``
   proofs as a verifier gets them (host numpy in, one bool out, the
   deduplicated schedule by default, ``--no-dedupe`` for the per-proof
@@ -19,6 +20,11 @@ suites of ``cuzk_tpu.bench.run``, on one Hopper card:
   ``--tampered`` the failure-isolation row (one tampered proof);
 - ``updates``: 64 incremental leaf updates against a rebuild;
 - ``trees``: ``merkle.benchmark_tree`` over (1024, 2), (4096, 4), (50K, 8);
+- ``scaling``: the sharded build (``parallel.distributed``) on ``--devices``
+  ranks, one process a rank, launched by ``bench.mp_scaling``; ``--weak``
+  sweeps 1, 2, 4, ... ranks at ``--leaves`` leaves a rank.  Ranks take card
+  ``rank % cards``; when they share a card their contexts are time-sliced
+  and ``efficiency_serialized`` is the ratio to read;
 - a cross-implementation gate before any suite (the reference gates its
   whole benchmark binary, benchmark.cpp:137-144): every kernel entry point
   against its plain version on the card, the raw permutation included.
@@ -37,6 +43,8 @@ Usage:
         --device-resident --tampered
     python -m cuzk_tpu_torch.bench.run --suite updates
     python -m cuzk_tpu_torch.bench.run --suite trees
+    python -m cuzk_tpu_torch.bench.run --suite scaling --weak --devices 4 \
+        --leaves 262144 --arity 8
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import numpy as np
 import torch
 
 from cuzk_tpu_torch import merkle, poseidon
+from cuzk_tpu_torch.bench import mp_scaling
 from cuzk_tpu_torch.engine import (
     CoalescingPoseidonEngine,
     CudaPoseidonEngine,
@@ -76,6 +85,10 @@ POSEIDON_CONFIGS = [
     (1024, 100_000, "Medium Scale"),
     (4096, 1_000_000, "Large Scale"),
 ]
+
+# The largest published build: 1,048,576 leaves at arity 8 (padded to
+# 8^7 = 2,097,152: 7 sponge launches of 262,144 down to 1 group).
+NORTH_STAR_BUILD = (1_048_576, 8)
 
 # Batches up to this size go through the coalescing engine by default.
 COALESCE_MAX_BATCH = 2048
@@ -587,6 +600,48 @@ def bench_tree_matrix(configs=TREE_MATRIX, num_proofs: int = 100,
     return out
 
 
+def bench_sharded_build(n_leaves: int, arity: int,
+                        n_devices: Optional[int] = None, iters: int = 3,
+                        device=None, timeout_s: float = 1800) -> Dict:
+    """The sharded build of ``n_leaves`` seeded leaves on ``n_devices``
+    ranks (default 1), one process a rank, on ``device`` (default: the
+    card): leaves sharded, local levels, one all-gather, a replicated
+    tail.  Throughput counts the padded leaves, with the stages, the
+    backend and whether the ranks shared a card beside it."""
+    res = mp_scaling.run_build(n_devices or 1, n_leaves, arity, iters,
+                               device=device, timeout_s=timeout_s)
+    res["suite"] = "sharded_build"
+    return res
+
+
+def bench_weak_scaling(leaves_per_device: int, arity: int,
+                       max_devices: Optional[int] = None, iters: int = 3,
+                       device=None, timeout_s: float = 1800) -> List[Dict]:
+    """Weak-scaling sweep: constant leaves a rank while the mesh grows (1,
+    2, 4, ... up to ``max_devices``, default the number of cards).
+    ``efficiency`` = throughput(d) / (d x throughput(1)).  Ranks that share
+    a card run time-sliced, so their parallel efficiency necessarily decays
+    about 1/d; ``efficiency_serialized`` = throughput(d) / throughput(1)
+    (ideal 1.0) then says what the sharded program (collectives, staging,
+    context switches) adds over the serialized compute.  Read
+    ``efficiency`` when each rank owns a card, ``efficiency_serialized``
+    when ``shared_card`` is true."""
+    if max_devices is None:
+        max_devices = (1 if device is not None
+                       and torch.device(device).type == "cpu"
+                       else torch.cuda.device_count())
+    results, base, d = [], None, 1
+    while d <= max_devices:
+        res = bench_sharded_build(leaves_per_device * d, arity, d, iters,
+                                  device=device, timeout_s=timeout_s)
+        res["suite"] = "weak_scaling"
+        if base is None:
+            base = res["leaves_per_s"]
+        results.append(mp_scaling.with_efficiency(res, base))
+        d *= 2
+    return results
+
+
 def _print_summary(results: List[Dict], device: torch.device) -> None:
     """Human summary after the JSON lines — the analog of the reference
     binary's speedup tables and best-performer line (benchmark.cpp:81-123)."""
@@ -609,6 +664,14 @@ def _print_summary(results: List[Dict], device: torch.device) -> None:
             rows.append((s, cfg, f"{r['build_ms']:.3f} ms",
                          f"{r['leaves_per_s']:,.0f} leaves/s",
                          r.get("vs_baseline")))
+        elif s in ("sharded_build", "weak_scaling"):
+            cfg = (f"{r['leaves']} leaves a={r['arity']} d={r['devices']} "
+                   f"({r['backend']}{', shared card' if r['shared_card'] else ''})")
+            rate = f"{r['leaves_per_s']:,.0f} padded leaves/s"
+            if "efficiency" in r:
+                rate += (f", eff {r['efficiency']:.3f}, serialized "
+                         f"{r['efficiency_serialized']:.3f}")
+            rows.append((s, cfg, f"{r['build_ms']:.3f} ms", rate, None))
         elif s == "proof_generation":
             cfg = f"{r['proofs']} proofs a={r['arity']}"
             rows.append((s, cfg, f"{r['gen_ms']:.3f} ms (min "
@@ -664,7 +727,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--suite", default="all",
                         choices=["all", "poseidon", "merkle", "proofs",
-                                 "updates", "trees"])
+                                 "updates", "trees", "scaling"],
+                        help="all = poseidon, merkle and proofs; updates, "
+                        "trees and scaling run when named")
     parser.add_argument("--mode", default="both",
                         choices=["both", "pairs", "single"])
     parser.add_argument("--batch", type=int, default=None)
@@ -673,6 +738,15 @@ def main(argv=None) -> None:
     parser.add_argument("--arity", type=int, default=4)
     parser.add_argument("--proofs", type=int, default=5_000)
     parser.add_argument("--skip-verify", action="store_true")
+    parser.add_argument(
+        "--devices", type=int, default=None,
+        help="scaling suite: ranks of the sharded build (one process each; "
+        "with --weak the largest mesh of the sweep)",
+    )
+    parser.add_argument(
+        "--weak", action="store_true",
+        help="scaling suite: weak-scaling sweep (--leaves = leaves a rank)",
+    )
     parser.add_argument(
         "--no-dedupe", action="store_true",
         help="proofs suite: the per-proof verify kernel, no dedup schedule",
@@ -728,9 +802,11 @@ def main(argv=None) -> None:
                 print(json.dumps(res))
 
     if args.suite in ("all", "merkle"):
-        res = bench_merkle_build(args.leaves, args.arity, device=device)
-        results.append(res)
-        print(json.dumps(res))
+        for n_leaves, arity in dict.fromkeys(
+                [(args.leaves, args.arity), NORTH_STAR_BUILD]):
+            res = bench_merkle_build(n_leaves, arity, device=device)
+            results.append(res)
+            print(json.dumps(res))
 
     if args.suite in ("all", "proofs"):
         shape = (args.proofs, args.leaves, args.arity)
@@ -760,6 +836,15 @@ def main(argv=None) -> None:
 
     if args.suite == "trees":
         results.extend(bench_tree_matrix(device=device))
+
+    if args.suite == "scaling":
+        if args.weak:
+            rows = bench_weak_scaling(args.leaves, args.arity, args.devices)
+        else:
+            rows = [bench_sharded_build(args.leaves, args.arity, args.devices)]
+        for res in rows:
+            results.append(res)
+            print(json.dumps(res))
 
     _print_summary(results, device)
 

@@ -9,6 +9,7 @@ records (``cuzk_tpu.bench.run``), plus the card.
 import pytest
 import torch
 
+from cuzk_tpu_torch import merkle
 from cuzk_tpu_torch.bench import profile, run
 
 POSEIDON_KEYS = {
@@ -148,3 +149,55 @@ def test_summary_prints_the_proof_rows(capsys):
     out = capsys.readouterr().out
     assert "12.500 ms (min 11.000)" in out
     assert "1 of 50000 tampered a=4" in out and "5.00x vs rebuild" in out
+
+
+SCALING_KEYS = {
+    "suite", "processes", "devices", "leaves", "padded_leaves", "arity",
+    "build_ms", "leaves_per_s", "stages", "backend", "shared_card", "card",
+    "sponge_launches_per_build", "efficiency", "efficiency_serialized",
+}
+
+
+def test_weak_scaling_rows_on_two_cpu_ranks():
+    """1 then 2 ranks of 3 leaves each at arity 4: 3 leaves pad to 4, 6 to
+    16, and the ratios are taken on the padded rates."""
+    rows = run.bench_weak_scaling(3, 4, max_devices=2, iters=1, device="cpu",
+                                  timeout_s=300)
+    assert [r["devices"] for r in rows] == [1, 2]
+    assert [(r["leaves"], r["padded_leaves"]) for r in rows] == [(3, 4), (6, 16)]
+    for r in rows:
+        assert SCALING_KEYS <= set(r) and r["suite"] == "weak_scaling"
+        assert r["backend"] == "gloo" and not r["shared_card"]
+        assert r["leaves_per_s"] == pytest.approx(
+            r["padded_leaves"] / (r["build_ms"] / 1e3))
+    assert rows[0]["efficiency"] == rows[0]["efficiency_serialized"] == 1.0
+    assert rows[1]["efficiency_serialized"] == pytest.approx(
+        rows[1]["leaves_per_s"] / rows[0]["leaves_per_s"])
+    assert rows[1]["efficiency"] == pytest.approx(
+        rows[1]["efficiency_serialized"] / 2)
+
+
+def test_summary_prints_the_scaling_rows(capsys):
+    rows = [
+        {"suite": "weak_scaling", "leaves": 1048576, "arity": 8, "devices": 4,
+         "backend": "gloo", "shared_card": True, "build_ms": 40.0,
+         "leaves_per_s": 5e7, "efficiency": 0.2, "efficiency_serialized": 0.8},
+        {"suite": "sharded_build", "leaves": 64, "arity": 2, "devices": 1,
+         "backend": "nccl", "shared_card": False, "build_ms": 2.0,
+         "leaves_per_s": 3e4},
+    ]
+    run._print_summary(rows, torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "1048576 leaves a=8 d=4 (gloo, shared card)" in out
+    assert "eff 0.200, serialized 0.800" in out
+    assert "64 leaves a=2 d=1 (nccl)" in out
+
+
+def test_the_suites_the_cli_offers():
+    assert run.NORTH_STAR_BUILD == (1_048_576, 8)
+    assert merkle.padded_leaf_count(*run.NORTH_STAR_BUILD) == 8 ** 7
+    for suite in ("all", "poseidon", "merkle", "proofs", "updates", "trees",
+                  "scaling"):
+        assert f"--suite {suite}" in run.__doc__
+    with pytest.raises(SystemExit):
+        run.main(["--suite", "sweep"])  # not ported yet

@@ -356,3 +356,64 @@ def test_updates_batch_trees_and_load_on_the_card(cuda_device, tmp_path):
     merkle.save_tree(tree, path)
     loaded = merkle.load_tree(path, verify=True, device=cuda_device)
     assert loaded.levels[0].is_cuda and merkle.compare_trees(tree, loaded)
+
+
+@pytest.mark.parametrize("arity,count", [(8, 5000), (4, 1024), (3, 5)])
+def test_one_rank_sharded_build_and_proofs_on_the_card(arity, count,
+                                                       cuda_device):
+    """The one-rank mesh needs no launcher: host leaves go to the card, the
+    levels come from K1 and the proofs verify through one K3 launch."""
+    from cuzk_tpu_torch.parallel import distributed
+
+    rng = np.random.default_rng(900 + arity)
+    leaves = rng.integers(0, 1 << 16, (count, 16), dtype=np.uint32)
+    mesh = distributed.make_mesh()
+    assert mesh.device == cuda_device and mesh.size == 1
+    want = merkle.build_tree_levels(leaves, arity)
+    poseidon_cuda.reset_launch_counts()
+    sharded, replicated = distributed.sharded_build_levels(leaves, arity, mesh)
+    assert poseidon_cuda.launch_counts["sponge"] == len(want) - 1
+    got = sharded[:-1] + replicated
+    assert len(got) == len(want) and got[0].is_cuda
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    idx = rng.integers(0, count, 200)
+    pos, sib = distributed.sharded_generate_proofs(sharded, replicated, arity,
+                                                   idx, mesh)
+    want_pos, want_sib = merkle.generate_proofs(want, arity, idx)
+    assert torch.equal(pos, want_pos) and torch.equal(sib, want_sib)
+    root = distributed.sharded_merkle_root(leaves, arity, mesh)
+    poseidon_cuda.reset_launch_counts()
+    ok = merkle.verify_proofs(pos, sib, want[0][torch.as_tensor(idx)], root,
+                              arity)
+    assert bool(ok.all()) and poseidon_cuda.launch_counts["verify"] == 1
+
+
+def test_sharded_hashes_on_the_card(cuda_device):
+    from cuzk_tpu_torch.parallel import distributed
+
+    rng = np.random.default_rng(910)
+    l, r = (rng.integers(0, 1 << 16, (4096, 16), dtype=np.uint32)
+            for _ in range(2))
+    mesh = distributed.make_mesh()
+    pairs = distributed.sharded_hash_pairs(l, r, mesh)
+    assert pairs.is_cuda
+    assert torch.equal(pairs.cpu(), poseidon.hash_pair(
+        fr.as_digits(l), fr.as_digits(r)))
+    single = distributed.sharded_hash_single(l, mesh)
+    assert torch.equal(single.cpu(), poseidon.hash_single(fr.as_digits(l)))
+
+
+@pytest.mark.parametrize("nproc", [1, 2])
+def test_launcher_ranks_on_the_card(nproc, cuda_device):
+    """Spawned ranks on the card: NCCL for one rank, gloo through the host
+    for two that share it; the root is the single-card build's."""
+    from cuzk_tpu_torch.bench import mp_scaling
+    from cuzk_tpu_torch.parallel import distributed
+
+    res = mp_scaling.run_build(nproc, 4096 * nproc, 8, 1, timeout_s=600)
+    assert res["backend"] == distributed.choose_backend(nproc)
+    assert res["shared_card"] == (nproc > torch.cuda.device_count())
+    assert res["sponge_launches_per_build"] == 4 + (nproc == 2)
+    leaves = np.random.default_rng(17).integers(
+        0, 1 << 16, (4096 * nproc, 16), dtype=np.uint32)
+    assert res["root0"] == int(merkle.merkle_root(leaves, 8)[0])

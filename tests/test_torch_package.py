@@ -54,6 +54,9 @@ MODULES = [
     "cuzk_tpu_torch.bench.headline",
     "cuzk_tpu_torch.bench.run",
     "cuzk_tpu_torch.bench.profile",
+    "cuzk_tpu_torch.bench.mp_scaling",
+    "cuzk_tpu_torch.parallel",
+    "cuzk_tpu_torch.parallel.distributed",
 ]
 
 
@@ -301,6 +304,32 @@ def test_chip_smoke_golden_values_are_the_oracles(op, args, want):
 def test_chip_smoke_50k_root_is_the_native_oracles():
     leaves = oracle.generate_test_leaves(50_000, 42)
     assert native.merkle_root(leaves, 4) == CHIP_SMOKE.ROOT_50K_ARITY4
+
+
+def test_chip_smoke_262144_root_is_the_native_oracles():
+    """The golden node of the 1M-leaf arity-8 tree: its first 8^6 leaves
+    are generate_test_leaves(262144, 42), so their root is node 0 of its
+    level 6 (the whole tree's root would cost the oracle minutes)."""
+    assert oracle.generate_test_leaves(262_144, 42) == \
+        oracle.generate_test_leaves(CHIP_SMOKE.LEAVES_1M, 42)[:8 ** 6]
+    leaves = oracle.generate_test_leaves(262_144, 42)
+    assert native.merkle_root(leaves, 8) == CHIP_SMOKE.ROOT_262144_ARITY8
+    assert (CHIP_SMOKE.LEAVES_1M, CHIP_SMOKE.ARITY_1M) == (1_048_576, 8)
+
+
+def test_parallel_package_is_found_and_exports_the_jax_names():
+    import setuptools
+
+    import cuzk_tpu.parallel as jparallel
+    import cuzk_tpu_torch.parallel as parallel
+
+    found = setuptools.find_packages(REPO, include=["cuzk_tpu_torch*"])
+    assert "cuzk_tpu_torch.parallel" in found
+    assert set(jparallel.__all__) | {
+        "sharded_generate_proofs", "initialize_multiprocess"
+    } == set(parallel.__all__)
+    for name in parallel.__all__:
+        assert callable(getattr(parallel, name))
 
 
 def test_scheduler_build_failure_propagates(monkeypatch, tmp_path):
