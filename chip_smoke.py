@@ -42,7 +42,19 @@ their public entry points at the reference's published sizes:
   verdicts on the tampered proofs equal to the plain verify's), and
   1,048,576 sharded pair hashes equal to ``hash_pair_cuda`` on the whole
   batch.  Ranks sharing one card are time-sliced: their times are an
-  overhead reading, not a speed-up.
+  overhead reading, not a speed-up;
+- slice 6 (phase 16, and ``sub`` in phase 2): ``bench.run``'s ``verify``
+  suite with ``--stress`` (the port's oracle, its native oracle, the plain
+  path and the kernels on 256 random inputs, the golden vectors, builds
+  against the native oracle, K3 and the dedup verify, the 262,144-leaf
+  arity-8 tier), ``compare`` at 50,000 leaves arity 4 (K1's build against
+  the plain build under ``merkle.engine_path("plain")`` on the card) and
+  ``sweep`` (arities 2-8 x 64-4,096 leaves, 256 honest proofs a verify
+  that must all pass), each failing on a mismatch;
+  ``BatchFieldArithmetic`` on phase 2's 68,613
+  operands per op against the plain ``fr`` ops on the card; the int
+  helpers against the golden values; the port's native oracle against its
+  Python-int oracle on 256 pairs.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; in slice 3 each main-path call is counted alone and must make
@@ -61,7 +73,10 @@ trees), the slice-4 sweep, the slice-5 times (``build_1m_arity8_ms``; its K1
 sum with the bound of those 7 launches, the share reached and the plain
 sponge's time; K3 at the 1M tree's 5,000 proofs likewise,
 ``verify_1m_5k_*``; ``sharded_build_1m_ms`` per rank count with stages and
-backend, ``sharded_proofs_5k_ms``) and the ptxas record.  Each kernel's ``launches``
+backend, ``sharded_proofs_5k_ms``), the slice-6 numbers
+(``verify_suite_ok``, ``compare_50k_ms`` accelerated and plain,
+``sweep_ms`` per arity, ``fr_sub_ms`` with its plain time and bound) and the
+ptxas record.  Each kernel's ``launches``
 is the sum over the slices' main-path runs (``launches_by_slice`` splits
 it; slice 5's counts add every rank's).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -465,6 +480,132 @@ def sharded_phase(dev, name_power, bound):
     return slice5, numbers, k1_err, k3_err
 
 
+def slice6_phase(dev, name_power, a, b, sms, clock_hz):
+    """Phase 16: the slice-6 main path, counted alone (the verify suite
+    with its stress tier, compare at 50,000 leaves arity 4, the sweep,
+    ``BatchFieldArithmetic`` on ``a`` and ``b`` (phase 2's operands), the
+    int helpers, the native oracle on 256 pairs), then each result held:
+    the suites raise on a failed check, the batch ops against the plain
+    ``fr`` ops on the card, the helpers against ``GOLDEN``, the native
+    oracle against the Python-int one.  Returns the launch counts and the
+    numbers for the JSON line."""
+    import contextlib
+    import io
+
+    from cuzk_tpu_torch import native, oracle, poseidon
+    from cuzk_tpu_torch.bench import run as bench_run
+    from cuzk_tpu_torch.field import fr
+    from cuzk_tpu_torch.field.batch import BatchFieldArithmetic
+    from cuzk_tpu_torch.ops import poseidon_cuda as pc
+    from cuzk_tpu_torch.utils.stats import cuda_time_ms
+
+    start_s = time.perf_counter()
+    int_ops = {"hash_single": poseidon.hash_single_int,
+               "hash_pair": poseidon.hash_pair_int,
+               "hash_multiple": poseidon.hash_multiple_int}
+    batch_ops = [("batch_add", fr.add, (a, b)),
+                 ("batch_subtract", fr.sub, (a, b)),
+                 ("batch_multiply", fr.mul, (a, b)),
+                 ("batch_square", fr.square, (a,)),
+                 ("batch_power5", fr.power5, (a,)),
+                 ("batch_reduce", fr.red, (a,))]
+    rng = np.random.default_rng(16)
+    left, right = ([int(v) for v in rng.integers(0, 1 << 63, 256)]
+                   for _ in range(2))
+    bench_out = io.StringIO()
+    suite_s = {}
+    pc.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(bench_out):
+        out = os.path.join(d, "CUDA_VERIFY.json")
+        t = time.perf_counter()
+        bench_run.main(["--suite", "verify", "--stress", "--skip-verify",
+                        "--verify-out", out])
+        suite_s["verify"] = time.perf_counter() - t
+        with open(out) as f:
+            artifact = json.load(f)
+        t = time.perf_counter()
+        (compare,) = bench_run.main(["--suite", "compare", "--leaves", "50000",
+                                     "--arity", "4", "--skip-verify"])
+        suite_s["compare"] = time.perf_counter() - t
+        t = time.perf_counter()
+        sweep_rows = bench_run.main(["--suite", "sweep", "--skip-verify"])
+        suite_s["sweep"] = time.perf_counter() - t
+    field = BatchFieldArithmetic()
+    check(field.initialize(), "BatchFieldArithmetic.initialize")
+    batch_got = {m: getattr(field, m)(*args) for m, _, args in batch_ops}
+    helpers = [(op, args, want, int_ops[op](*args))
+               for op, args, want in GOLDEN if op in int_ops]
+    native_pairs = native.batch_hash_pairs(left, right)
+    torch.cuda.synchronize()
+    slice6 = dict(pc.launch_counts)
+
+    check(artifact["all_ok"] and artifact["stress"]
+          and artifact["device"] == name_power
+          and len(artifact["checks"]) == 25, f"verify artifact {artifact}")
+    check(compare["trees_consistent"], "compare: trees differ")
+    verifies = [r for r in sweep_rows if r["suite"] == "batch_verify"]
+    builds = [r for r in sweep_rows if r["suite"] == "merkle_build"]
+    check(len(builds) == 28 and len(verifies) == 7
+          and all(r["all_valid"] for r in verifies), "sweep rows")
+    batch_err = 0
+    for m, plain, args in batch_ops:
+        batch_err = max(batch_err, max_abs_err(batch_got[m], plain(*args)))
+    check(batch_err == 0, f"BatchFieldArithmetic != plain fr (err {batch_err})")
+    for op, args, want, got in helpers:
+        check(got == want, f"{op}_int{args}: {got:#x} != {want:#x}")
+    check(native_pairs == [oracle.hash_pair(x, y) for x, y in zip(left, right)],
+          "native.batch_hash_pairs != oracle.hash_pair")
+    check(slice6["fr_op"] == len(batch_ops), f"fr_op launches {slice6}")
+    for name in ("sponge", "verify", "permutation"):
+        check(slice6[name] > 0, f"kernel {name} never ran in the slice-6 path")
+
+    # fr_op's sub at phase 2's shape: the kernel alone on limbs, its
+    # wrapper on digits (three digit<->limb conversions around it) and the
+    # plain fr.sub.  Its bound is its bytes (two operands read, one result
+    # written, 32 bytes each), far above its 25 integer operations an
+    # element at 64 a clock on each SM.
+    n = a.shape[0]
+    al, bl = (fr.digits_to_limbs(x).contiguous() for x in (a, b))
+    check(torch.equal(fr.limbs_to_digits(pc.fr_op_limbs("sub", al, bl)),
+                      fr.sub(a, b)), "fr_op_limbs sub != plain")
+    sub_ms = cuda_time_ms(lambda: pc.fr_op_limbs("sub", al, bl))
+    sub_wrapper_ms = cuda_time_ms(lambda: pc.fr_op_cuda("sub", a, b))
+    sub_plain_ms = cuda_time_ms(lambda: fr.sub(a, b), iters=3, warmup=1)
+    sub_bound_ms = max(3 * 32 * n / HBM_BYTES_PER_S,
+                       25 * n / (sms * 64 * clock_hz)) * 1e3
+    sweep_ms = {}
+    for r in sweep_rows:
+        row = sweep_ms.setdefault(str(r["arity"]), {})
+        if r["suite"] == "merkle_build":
+            row[str(r["leaves"])] = r["build_ms"]
+        else:
+            row[f"verify_{r['proofs']}_at_{r['leaves']}"] = r["verify_ms"]
+    print(f"phase 16 verify suite --stress: {len(artifact['checks'])} checks "
+          f"ok ({suite_s['verify']:.1f} s); compare 50,000 leaves arity 4: "
+          f"K1 build {compare['accelerated_ms']:.3f} ms, plain build on the "
+          f"card {compare['reference_path_ms']:.3f} ms, roots equal "
+          f"({suite_s['compare']:.1f} s); sweep: 28 builds, 7 verifies of 256 "
+          f"proofs ok ({suite_s['sweep']:.1f} s); BatchFieldArithmetic x 6 "
+          f"ops on {n} operands = plain; {len(helpers)} int helpers golden; "
+          f"native = oracle on 256 pairs; fr_op sub {sub_ms:.4f} ms (wrapper "
+          f"{sub_wrapper_ms:.3f}, plain {sub_plain_ms:.3f}, bound "
+          f"{sub_bound_ms:.4f}); slice-6 launches "
+          f"{slice6}; phase {time.perf_counter() - start_s:.1f} s on "
+          f"{name_power}", flush=True)
+    return slice6, {
+        "verify_suite_ok": artifact["all_ok"],
+        "verify_suite_checks": len(artifact["checks"]),
+        "compare_50k_ms": {"accelerated": compare["accelerated_ms"],
+                           "plain": compare["reference_path_ms"]},
+        "sweep_ms": sweep_ms,
+        "fr_sub_ms": sub_ms, "fr_sub_wrapper_ms": sub_wrapper_ms,
+        "fr_sub_plain_ms": sub_plain_ms,
+        "fr_sub_bound_ms": sub_bound_ms,
+        "phase16_suite_s": suite_s,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -537,7 +678,7 @@ def main() -> None:
     )
     a, b = torch.cat([a, edges]), torch.cat([b, edges.flip(0)])
     op_err = 0
-    for op in ("mul", "square", "power5", "add_wrap_red", "red"):
+    for op in ("mul", "square", "power5", "add_wrap_red", "red", "sub"):
         args = (a,) if op in ("square", "power5", "red") else (a, b)
         op_err = max(op_err, max_abs_err(pc.fr_op_cuda(op, *args),
                                          pc.FR_OPS[op][1](*args)))
@@ -1082,13 +1223,18 @@ def main() -> None:
         dev, name_power, bound)
     k1_err, k3_err = max(k1_err, k1_err_1m), max(k3_err, k3_err_1m)
 
+    # (16) Slice 6: the suites, the batch field ops, the int helpers and
+    # the native oracle, on phase 2's operands.
+    slice6, slice6_numbers = slice6_phase(dev, name_power, a, b, sms, clock_hz)
+
     k1_bound, k1_by = bound(65536, 65536 * 3 * 32)
     k3_perms = n_proofs * h * ((arity + 1) // 2)
     k3_bound, k3_by = bound(k3_perms, pos.numel() * 4 + sib.numel() * 2
                             + proved.numel() * 2 + 32 + n_proofs)
     k4_bound, k4_by = bound(n_perm, n_perm * 6 * 32)
     k1_lanes = pc.choose_lanes(65536, resident["sponge"])
-    by_slice = {"1": launches, "2": slice2, "3": slice3, "5": slice5}
+    by_slice = {"1": launches, "2": slice2, "3": slice3, "5": slice5,
+                "6": slice6}
     record = {"kernels": [
         {"name": "sponge", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
@@ -1132,7 +1278,7 @@ def main() -> None:
         "update_64_ms": update_ms, "rebuild_50k_ms": rebuild_ms,
         "batch_trees_16x4096_ms": batch_ms, "single_trees_16x4096_ms": singles_ms,
         "build_50k_k1_ms": build_k1_ms, "launches_by_slice": by_slice,
-        **slice5_numbers, "sweep": sweep,
+        **slice5_numbers, **slice6_numbers, "sweep": sweep,
         "resident_states": resident, "clocks_max_sm_mhz": clock_hz / 1e6,
         "ptxas": kernels.ptxas, "card": name_power}
     print(json.dumps(record), flush=True)

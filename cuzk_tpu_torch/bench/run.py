@@ -1,8 +1,8 @@
 """Benchmark suite of the port: Poseidon hashing, Merkle builds, proofs,
-updates, trees and the sharded build's scaling.
+updates, trees, the sharded build's scaling, the plain-against-accelerated
+comparison, the arity sweep and the hardware verification.
 
-The counterpart of the Poseidon, tree-build, proofs, updates, trees and
-scaling suites of ``cuzk_tpu.bench.run``, on one Hopper card:
+The counterpart of ``cuzk_tpu.bench.run``, on one Hopper card:
 
 - the reference's ``poseidon_benchmark`` configs {10K x 512, 100K x 1024,
   1M x 4096} (benchmark.cpp:213-235), single and pair hashing: small
@@ -25,15 +25,30 @@ scaling suites of ``cuzk_tpu.bench.run``, on one Hopper card:
   sweeps 1, 2, 4, ... ranks at ``--leaves`` leaves a rank.  Ranks take card
   ``rank % cards``; when they share a card their contexts are time-sliced
   and ``efficiency_serialized`` is the ratio to read;
+- ``compare``: the accelerated build against the plain one
+  (``merkle.engine_path("plain")``) on the same device, with the trees
+  held equal in the run (the reference's benchmark_cuda_vs_cpu_merkle,
+  merkle_tree_cuda.cu:648-856);
+- ``sweep``: builds at arities 2-8 x 64-4,096 leaves, and a per-proof
+  verify of 256 proofs at the largest size per arity, which must all
+  verify (test_merkle_benchmark.cpp:39-235);
+- ``verify``: the hardware verification: the port's oracle, its native
+  oracle, the plain path and the kernels on the same random inputs, the
+  golden vectors, builds against the native oracle, K3 and the dedup verify,
+  honest and tampered, and with ``--stress`` a 262,144-leaf arity-8 tree;
+  it writes a JSON artifact (``--verify-out``) and exits non-zero on any
+  failed check;
 - a cross-implementation gate before any suite (the reference gates its
   whole benchmark binary, benchmark.cpp:137-144): every kernel entry point
-  against its plain version on the card, the raw permutation included.
+  against its plain version, the raw permutation included.
 
 Timing: warm-up outside the timer; inside it the host clock runs until
-``torch.cuda.synchronize()`` returns.  Every function takes an explicit
-``device``; on the CPU the same code runs the plain versions (for tests of
-the plumbing only — CPU numbers are not device metrics).  Results print
-as JSON lines, each naming the card, then a summary table.
+``torch.cuda.synchronize()`` returns.  ``--device`` picks the device (the
+card by default, which raises without one); ``--device cpu`` runs every
+suite on the plain versions, for tests of the plumbing only — CPU numbers
+are not device metrics.  ``--path plain`` runs the poseidon suite on the
+plain versions on the chosen device.  Results print as JSON lines, each
+naming the card, then a summary table.
 
 Usage:
     python -m cuzk_tpu_torch.bench.run --suite all
@@ -45,20 +60,28 @@ Usage:
     python -m cuzk_tpu_torch.bench.run --suite trees
     python -m cuzk_tpu_torch.bench.run --suite scaling --weak --devices 4 \
         --leaves 262144 --arity 8
+    python -m cuzk_tpu_torch.bench.run --suite compare --leaves 50000 --arity 4
+    python -m cuzk_tpu_torch.bench.run --suite sweep
+    python -m cuzk_tpu_torch.bench.run --suite verify --stress \
+        --verify-out chiprun_out/CUDA_VERIFY.json
+    python -m cuzk_tpu_torch.bench.run --suite verify --device cpu --skip-verify
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
+import os
+import sys
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from cuzk_tpu_torch import merkle, poseidon
+from cuzk_tpu_torch import merkle, native, oracle, poseidon
 from cuzk_tpu_torch.bench import mp_scaling
 from cuzk_tpu_torch.engine import (
     CoalescingPoseidonEngine,
@@ -68,7 +91,11 @@ from cuzk_tpu_torch.engine import (
 )
 from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.ops import poseidon_cuda as pc
-from cuzk_tpu_torch.utils.device import nvidia_smi_name_power, require_cuda
+from cuzk_tpu_torch.utils.device import (
+    nvidia_smi_name_power,
+    require_cuda,
+    resolve_device,
+)
 from cuzk_tpu_torch.utils.errors import ComputationError
 
 # A100 reference numbers (README.md:131-143, SURVEY.md §6).
@@ -137,6 +164,13 @@ def time_fn_stats(fn: Callable, *args, device, iters: int = 10,
     }
 
 
+def time_fn(fn: Callable, *args, device, iters: int = 10,
+            warmup: int = 2) -> float:
+    """Mean seconds per iteration (see :func:`time_fn_stats`)."""
+    return time_fn_stats(fn, *args, device=device, iters=iters,
+                         warmup=warmup)["mean_s"]
+
+
 def _rand_digits(n: int, seed: int) -> np.ndarray:
     """Random 256-bit canonical values as host digits; hashing reduces
     them on absorb."""
@@ -167,15 +201,28 @@ def verify_paths_match(batch: int = 256, device="cuda") -> bool:
     )
 
 
-def _engine(device: torch.device) -> PoseidonEngine:
-    """The kernels' engine on a card, the plain engine on the CPU."""
-    if device.type == "cuda":
+PATHS = ("kernel", "plain")
+
+
+def _hash_fns(path: str):
+    """(single, pair) hash functions of ``path``: the kernels' entry points
+    (which run the plain versions on CPU tensors), or the plain sponge."""
+    if path == "kernel":
+        return pc.hash_single_cuda, pc.hash_pair_cuda
+    return poseidon.hash_single, poseidon.hash_pair
+
+
+def _engine(device: torch.device, path: str = "kernel") -> PoseidonEngine:
+    """The kernels' engine on a card, the plain engine on the CPU or for
+    ``path="plain"``."""
+    if path == "kernel" and device.type == "cuda":
         return CudaPoseidonEngine(device)
     return TorchPoseidonEngine(device)
 
 
 def bench_poseidon(batch: int, total: int, mode: str = "pairs",
-                   pipeline: Optional[bool] = None, device="cuda") -> Dict:
+                   pipeline: Optional[bool] = None, device="cuda",
+                   path: str = "kernel") -> Dict:
     """One reference config (benchmark.cpp:213-235): ``total`` hashes fed
     ``batch`` at a time.
 
@@ -185,16 +232,18 @@ def bench_poseidon(batch: int, total: int, mode: str = "pairs",
     launches.  Host staging and uploads stay inside the timed region (the
     reference's numbers include its per-call copies too).
     ``pipeline=False`` forces the synchronous path on operands already on
-    the device.  The config's last output is held against the plain sponge
-    on the same device (``bit_exact``); a mismatch raises."""
+    the device.  ``path="plain"`` runs the plain sponge on the device
+    (synchronously unless ``pipeline=True``), the analog of the JAX
+    suite's ``--path jnp``.  The config's last output is held against the
+    plain sponge on the same device (``bit_exact``); a mismatch raises."""
     device = torch.device(device)
     iters = max(1, total // batch)
     if pipeline is None:
-        pipeline = batch <= COALESCE_MAX_BATCH
+        pipeline = path == "kernel" and batch <= COALESCE_MAX_BATCH
     l_h, r_h = _rand_digits(batch, 42), _rand_digits(batch, 43)
     l, r = _on(l_h, device), _on(r_h, device)
     if pipeline:
-        eng = CoalescingPoseidonEngine(_engine(device))
+        eng = CoalescingPoseidonEngine(_engine(device, path))
 
         def run_config():
             if mode == "pairs":
@@ -209,10 +258,12 @@ def bench_poseidon(batch: int, total: int, mode: str = "pairs",
         st = {k: v / iters for k, v in st.items()}
         last = run_config()
     else:
+        single_fn, pair_fn = _hash_fns(path)
+
         def run_batch():
             if mode == "pairs":
-                return pc.hash_pair_cuda(l, r)
-            return pc.hash_single_cuda(l)
+                return pair_fn(l, r)
+            return single_fn(l)
 
         st = time_fn_stats(run_batch, device=device, iters=iters, warmup=2)
         last = run_batch()
@@ -227,7 +278,7 @@ def bench_poseidon(batch: int, total: int, mode: str = "pairs",
     return {
         "suite": "poseidon",
         "mode": mode,
-        "path": "cuda" if device.type == "cuda" else "torch",
+        "path": "cuda" if path == "kernel" and device.type == "cuda" else "torch",
         "pipelined": bool(pipeline),
         "batch": batch,
         "total_hashes": iters * batch,
@@ -371,14 +422,15 @@ def bench_proof_generation(n_proofs: int, n_leaves: int, arity: int,
 
 def bench_batch_verify(n_proofs: int, n_leaves: int, arity: int,
                        iters: int = 10, dedupe: Optional[bool] = None,
-                       device="cuda") -> Dict:
+                       device="cuda", gate: bool = True) -> Dict:
     """The reference's batch verify (merkle_tree_cuda.cu:341-465): proofs
     on the host, one all-or-nothing bool out, ``merkle.verify_all`` with
     the schedule build, upload and readback inside the timed region.
-    First a gate on a 64-proof subset: the verify kernel on the device,
-    the plain path on the host and the dedup path must agree (the
-    reference cross-checks its CPU and GPU results inside its benchmark,
-    merkle_tree_cuda.cu:648-856); a disagreement raises."""
+    With ``gate``, first a check on a 64-proof subset: the verify kernel
+    on the device, the plain path on the host and the dedup path must
+    agree (the reference cross-checks its CPU and GPU results inside its
+    benchmark, merkle_tree_cuda.cu:648-856); a disagreement raises.
+    ``paths_consistent`` is None when the gate did not run."""
     device = torch.device(device)
     pos, sib, proved, root = _host_proofs(n_proofs, n_leaves, arity, device)
 
@@ -387,16 +439,17 @@ def bench_batch_verify(n_proofs: int, n_leaves: int, arity: int,
                                  device=device)
 
     ok = verify()
-    k_sub = min(64, n_proofs)
-    sub = (pos[:k_sub], sib[:k_sub], proved[:k_sub], root)
-    kernel_sub = merkle._exact(*sub, arity, device)
-    plain_sub = merkle._exact(*sub, arity, torch.device("cpu"))
-    dedup_sub = merkle.verify_all(*sub, arity, dedupe=True, device=device)
-    if not (np.array_equal(kernel_sub, plain_sub)
-            and dedup_sub == bool(kernel_sub.all())):
-        raise ComputationError(
-            "batch-verify paths disagree (kernel vs plain vs dedup)"
-        )
+    if gate:
+        k_sub = min(64, n_proofs)
+        sub = (pos[:k_sub], sib[:k_sub], proved[:k_sub], root)
+        kernel_sub = merkle._exact(*sub, arity, device)
+        plain_sub = merkle._exact(*sub, arity, torch.device("cpu"))
+        dedup_sub = merkle.verify_all(*sub, arity, dedupe=True, device=device)
+        if not (np.array_equal(kernel_sub, plain_sub)
+                and dedup_sub == bool(kernel_sub.all())):
+            raise ComputationError(
+                "batch-verify paths disagree (kernel vs plain vs dedup)"
+            )
     st = time_fn_stats(verify, device=device, iters=iters, warmup=1,
                        groups=iters)
     ms = st["mean_s"] * 1e3
@@ -407,7 +460,7 @@ def bench_batch_verify(n_proofs: int, n_leaves: int, arity: int,
         "arity": arity,
         "dedupe": dedupe,
         "all_valid": ok,
-        "paths_consistent": True,
+        "paths_consistent": True if gate else None,
         "verify_ms": ms,
         "verify_ms_p50": st["p50_s"] * 1e3,
         "verify_ms_min": st["min_s"] * 1e3,
@@ -600,6 +653,237 @@ def bench_tree_matrix(configs=TREE_MATRIX, num_proofs: int = 100,
     return out
 
 
+def bench_merkle_compare(n_leaves: int, arity: int, iters: int = 3,
+                         device="cuda") -> Dict:
+    """The accelerated build against the plain one on the same device,
+    with the two roots held equal in the run: the analog of the
+    reference's ``benchmark_cuda_vs_cpu_merkle`` (merkle_tree_cuda.cu:
+    648-856) and of ``cuzk_tpu.bench.run.bench_merkle_compare``.  The
+    accelerated build is ``merkle.build_tree_levels`` (K1's level loop on a
+    card); the plain one the same call under ``merkle.engine_path("plain")``
+    (the plain sponge on the same device, timed once).
+    ``trees_consistent`` says whether the roots agree; ``main`` exits
+    non-zero when they do not."""
+    device = torch.device(device)
+    leaves = _on(_rand_digits(n_leaves, 11), device)
+
+    def build_fast():
+        return merkle.build_tree_levels(leaves, arity)[-1]
+
+    sec_fast = time_fn(build_fast, device=device, iters=iters, warmup=1)
+    # The plain build runs once: it compiles nothing to warm up, and at
+    # 50,000 leaves it takes seconds (launch-bound on the host).
+    start = time.perf_counter()
+    with merkle.engine_path("plain"):
+        root_plain = merkle.build_tree_levels(leaves, arity)[-1]
+    _wait(device)
+    sec_plain = time.perf_counter() - start
+    consistent = torch.equal(build_fast(), root_plain)
+    return {
+        "suite": "merkle_compare",
+        "leaves": n_leaves,
+        "arity": arity,
+        "accelerated_ms": sec_fast * 1e3,
+        "reference_path_ms": sec_plain * 1e3,
+        "speedup": sec_plain / sec_fast,
+        "trees_consistent": consistent,
+        "card": card(device),
+    }
+
+
+SWEEP_ARITIES = tuple(range(2, 9))
+SWEEP_SIZES = (64, 256, 1024, 4096)
+
+
+def bench_merkle_sweep(arities=SWEEP_ARITIES, sizes=SWEEP_SIZES,
+                       proofs: int = 256, device="cuda") -> List[Dict]:
+    """Arity and leaf-count sweep, as the reference's benchmark-as-test
+    tables (test_merkle_benchmark.cpp:39-235: arities 2-8, sizes 64-4096):
+    one build row per (arity, size), then a ``dedupe=False`` verify of
+    ``proofs`` proofs at the largest size per arity (the per-proof kernel).
+    The verify rows skip :func:`bench_batch_verify`'s gate, whose plain
+    host verify costs seconds a row: the sweep holds only that the honest
+    proofs all verify (``all_valid``; ``main`` exits non-zero when they do
+    not), and the kernel-against-plain check is the ``proofs`` and
+    ``verify`` suites'.  One JSON line each."""
+    results: List[Dict] = []
+    for arity in arities:
+        for n in sizes:
+            res = bench_merkle_build(n, arity, iters=3, device=device)
+            results.append(res)
+            print(json.dumps(res))
+        res = bench_batch_verify(proofs, sizes[-1], arity, iters=3,
+                                 dedupe=False, device=device, gate=False)
+        results.append(res)
+        print(json.dumps(res))
+    return results
+
+
+# SURVEY.md Appendix A's golden vectors.
+GOLDEN_HASH_SINGLE_42 = (
+    0x066E59AED12901E110F7D8459D3C2FA7705B3CE5A5EB1C7593E7E1465F85DAFB)
+GOLDEN_HASH_PAIR_10_20 = (
+    0x2DD359F92D31C747E06C02B360A9F5C761777B285EDCF09724EFEF5CBD51D9BA)
+VERIFY_OUT = os.path.join("chiprun_out", "CUDA_VERIFY.json")
+# Leaves of the tree on which the verify suite holds the native oracle's
+# merkle_root against the Python-int one (past one level at arity 8).
+MERKLE_ORACLE_LEAVES = 67
+
+
+def run_hardware_verify(out_path: str = VERIFY_OUT, stress: bool = False,
+                        device=None, batch: int = 256, n_leaves: int = 4099,
+                        proofs: int = 512) -> Dict:
+    """The hardware verification, written as a JSON artifact to
+    ``out_path``: the counterpart of ``cuzk_tpu.bench.run.
+    run_hardware_verify`` (the reference's benchmark-gating verifier,
+    poseidon_cuda_benchmarks.cpp:137-259), on ``device`` (the card by
+    default).  Checks, each a bool in ``checks``:
+
+    - the four-way differential over ``batch`` random 256-bit inputs for
+      pairs, single, multiple (4 inputs) and the raw permutation: the
+      kernels (K1, K4) and the plain PyTorch path on the device, and the
+      native oracle, each against the port's Python-int oracle;
+    - the two golden vectors of SURVEY.md Appendix A through the kernels;
+    - builds of ``n_leaves`` leaves (not a power of any arity, so the
+      empty-hash padding runs) at arity 2, 4 and 8 against the native
+      oracle's root, which is held against the Python-int oracle's on the
+      first ``MERKLE_ORACLE_LEAVES`` leaves;
+    - K3 on ``proofs`` proofs at arity 4, all valid, then with one leaf
+      tampered, which must flip exactly its own slot; the deduplicated
+      verify on the same proofs, valid and tampered;
+    - with ``stress``: a 262,144-leaf arity-8 tree (height 7) and 256 of
+      its proofs through K3 and through the dedup verify.
+
+    ``all_ok`` is the and of every check; the artifact names the device
+    (the card's nvidia-smi name and power line, or "cpu")."""
+    device = resolve_device(device)
+    checks: Dict[str, bool] = {}
+
+    def progress(msg: str) -> None:
+        print(f"[verify] {msg}", file=sys.stderr, flush=True)
+
+    def ints(t) -> List[int]:
+        return fr.array_to_ints(t)
+
+    progress("four-way differential...")
+    l_h, r_h = _rand_digits(batch, 21), _rand_digits(batch, 22)
+    groups_h = _rand_digits(batch * 4, 23).reshape(batch, 4, fr.NDIGITS)
+    states_h = _rand_digits(batch * 3, 24).reshape(batch, 3, fr.NDIGITS)
+    l, r = _on(l_h, device), _on(r_h, device)
+    groups, states = _on(groups_h, device), _on(states_h, device)
+    li, ri = ints(l_h), ints(r_h)
+    gi = [ints(g) for g in groups_h]
+    si = [ints(st) for st in states_h]
+    want = {
+        "pairs": [oracle.hash_pair(a, b) for a, b in zip(li, ri)],
+        "single": [oracle.hash_single(a) for a in li],
+        "multiple": [oracle.hash_multiple(g) for g in gi],
+        "permutation": [oracle.permutation(st) for st in si],
+    }
+    ways = {
+        "pairs": {
+            "kernel": lambda: ints(pc.hash_pair_cuda(l, r)),
+            "plain": lambda: ints(poseidon.hash_pair(l, r)),
+            "native": lambda: native.batch_hash_pairs(li, ri),
+        },
+        "single": {
+            "kernel": lambda: ints(pc.hash_single_cuda(l)),
+            "plain": lambda: ints(poseidon.hash_single(l)),
+            "native": lambda: [native.hash_single(a) for a in li],
+        },
+        "multiple": {
+            "kernel": lambda: ints(pc.hash_multiple_cuda(groups)),
+            "plain": lambda: ints(poseidon.hash_multiple(groups)),
+            "native": lambda: [native.hash_multiple(g) for g in gi],
+        },
+        "permutation": {
+            "kernel": lambda: [ints(st) for st in pc.permutation_cuda(states)],
+            "plain": lambda: [ints(st) for st in poseidon.permutation(states)],
+            "native": lambda: [native.permutation(st) for st in si],
+        },
+    }
+    for op, by_way in ways.items():
+        for way, fn in by_way.items():
+            checks[f"{op}_{way}_vs_oracle"] = fn() == want[op]
+
+    progress("golden vectors...")
+    checks["golden_hash_single_42"] = ints(pc.hash_single_cuda(
+        fr.ints_to_array([42], device=device)))[0] == GOLDEN_HASH_SINGLE_42
+    checks["golden_hash_pair_10_20"] = ints(pc.hash_pair_cuda(
+        fr.ints_to_array([10], device=device),
+        fr.ints_to_array([20], device=device)))[0] == GOLDEN_HASH_PAIR_10_20
+
+    progress(f"builds of {n_leaves} leaves at arity 2, 4, 8...")
+    leaves_h = _rand_digits(n_leaves, 31)
+    leaves = _on(leaves_h, device)
+    leaf_ints = ints(leaves_h)
+    # The native oracle's root stands in for the Python-int one at full
+    # size (seconds of Python-int work a tree); the two are held equal on
+    # a small tree first.
+    small = leaf_ints[:MERKLE_ORACLE_LEAVES]
+    checks["merkle_root_native_vs_oracle"] = all(
+        native.merkle_root(small, arity) == oracle.merkle_root(small, arity)
+        for arity in (2, 4, 8))
+    for arity in (2, 4, 8):
+        checks[f"build_arity{arity}_vs_oracle"] = (
+            ints(merkle.merkle_root(leaves, arity))[0]
+            == native.merkle_root(leaf_ints, arity))
+
+    progress(f"K3 and the dedup verify on {proofs} proofs...")
+    arity = 4
+    tree = merkle.NaryMerkleTree(leaves, merkle.MerkleConfig(arity),
+                                 device=device)
+    idx = torch.as_tensor(np.arange(proofs) * 8 % n_leaves, device=device)
+    pos, sib = tree.generate_batch_proofs(idx)
+    proved = tree.levels[0][idx]
+    root = tree.get_root_hash()
+    checks["verify_kernel_all_valid"] = bool(
+        merkle.verify_proofs(pos, sib, proved, root, arity).all())
+    bad_slot = 7 % proofs
+    tampered = proved.clone()
+    tampered[bad_slot] ^= 1
+    bad = merkle.verify_proofs(pos, sib, tampered, root, arity)
+    checks["verify_kernel_detects_tamper"] = (
+        torch.nonzero(~bad).flatten().tolist() == [bad_slot])
+    checks["dedup_all_valid"] = merkle.verify_all(pos, sib, proved, root,
+                                                  arity, dedupe=True)
+    checks["dedup_detects_tamper"] = not merkle.verify_all(
+        pos, sib, tampered, root, arity, dedupe=True)
+
+    if stress:
+        progress("stress: 262,144 leaves at arity 8, 256 proofs...")
+        sn, sa = 262_144, 8
+        stree = merkle.NaryMerkleTree(_on(_rand_digits(sn, 77), device),
+                                      merkle.MerkleConfig(sa), device=device)
+        sidx = torch.as_tensor(np.arange(256) * 1021 % sn, device=device)
+        spos, ssib = stree.generate_batch_proofs(sidx)
+        sproved = stree.levels[0][sidx]
+        sroot = stree.get_root_hash()
+        checks["stress_256k_height"] = stree.get_tree_height() == 7
+        checks["stress_256k_proofs_verify"] = bool(
+            merkle.verify_proofs(spos, ssib, sproved, sroot, sa).all())
+        checks["stress_256k_dedup_verify"] = merkle.verify_all(
+            spos, ssib, sproved, sroot, sa, dedupe=True)
+
+    result = {
+        "suite": "hardware_verify",
+        "backend": device.type,
+        "device": card(device),
+        "date": datetime.datetime.now(datetime.timezone.utc).isoformat(),
+        "n_random_inputs": batch,
+        "tree": {"leaves": n_leaves, "arities": [2, 4, 8], "proofs": proofs},
+        "stress": stress,
+        "checks": checks,
+        "all_ok": all(checks.values()),
+    }
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(result, f, indent=2)
+    print(json.dumps({"suite": "hardware_verify", "all_ok": result["all_ok"],
+                      "artifact": out_path, "card": result["device"]}))
+    return result
+
+
 def bench_sharded_build(n_leaves: int, arity: int,
                         n_devices: Optional[int] = None, iters: int = 3,
                         device=None, timeout_s: float = 1800) -> Dict:
@@ -659,6 +943,11 @@ def _print_summary(results: List[Dict], device: torch.device) -> None:
                 best_pairs is None or r["hashes_per_s"] > best_pairs[1]
             ):
                 best_pairs = (cfg, r["hashes_per_s"])
+        elif s == "merkle_compare":
+            cfg = f"{r['leaves']} leaves a={r['arity']}"
+            rows.append((s, cfg, f"{r['accelerated_ms']:.3f} ms accelerated",
+                         f"{r['reference_path_ms']:.3f} ms plain "
+                         f"({r['speedup']:.1f}x)", None))
         elif s == "merkle_build":
             cfg = f"{r['leaves']} leaves a={r['arity']}"
             rows.append((s, cfg, f"{r['build_ms']:.3f} ms",
@@ -723,20 +1012,51 @@ def _print_summary(results: List[Dict], device: torch.device) -> None:
               f" ({best_pairs[0]})")
 
 
-def main(argv=None) -> None:
+def _int_list(text: str) -> List[int]:
+    return [int(v) for v in text.split(",") if v]
+
+
+def main(argv=None) -> List[Dict]:
+    """The CLI; returns the suites' records (the JSON lines it printed)."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--suite", default="all",
                         choices=["all", "poseidon", "merkle", "proofs",
-                                 "updates", "trees", "scaling"],
-                        help="all = poseidon, merkle and proofs; updates, "
-                        "trees and scaling run when named")
+                                 "updates", "trees", "scaling", "compare",
+                                 "sweep", "verify"],
+                        help="all = poseidon, merkle and proofs; the others "
+                        "run when named")
+    parser.add_argument(
+        "--device", default=None,
+        help="where the suites run: the card by default (raises without "
+        "one); 'cpu' runs the plain versions (plumbing only, no device "
+        "metric)",
+    )
+    parser.add_argument("--path", default="kernel", choices=PATHS,
+                        help="poseidon suite: the kernels, or the plain "
+                        "sponge on the chosen device")
     parser.add_argument("--mode", default="both",
                         choices=["both", "pairs", "single"])
-    parser.add_argument("--batch", type=int, default=None)
+    parser.add_argument("--batch", type=int, default=None,
+                        help="poseidon suite: a custom batch; verify suite: "
+                        "the random inputs of the differential (256)")
     parser.add_argument("--total", type=int, default=None)
-    parser.add_argument("--leaves", type=int, default=50_000)
+    parser.add_argument("--leaves", type=int, default=None,
+                        help="leaves of the tree (50,000; verify suite "
+                        "4,099; scaling with --weak: a rank's)")
     parser.add_argument("--arity", type=int, default=4)
-    parser.add_argument("--proofs", type=int, default=5_000)
+    parser.add_argument("--proofs", type=int, default=None,
+                        help="proofs suite 5,000; sweep 256 a verify; "
+                        "verify suite 512")
+    parser.add_argument("--arities", type=_int_list, default=None,
+                        help="sweep suite: comma-separated arities (2-8)")
+    parser.add_argument("--sizes", type=_int_list, default=None,
+                        help="sweep suite: comma-separated leaf counts "
+                        "(64,256,1024,4096)")
+    parser.add_argument("--verify-out", default=VERIFY_OUT,
+                        help="verify suite: the artifact's path")
+    parser.add_argument("--stress", action="store_true",
+                        help="verify suite: add the 262,144-leaf arity-8 "
+                        "tier")
     parser.add_argument("--skip-verify", action="store_true")
     parser.add_argument(
         "--devices", type=int, default=None,
@@ -772,9 +1092,18 @@ def main(argv=None) -> None:
         "batch loop chained there)",
     )
     args = parser.parse_args(argv)
-    device = require_cuda()
+    if args.sync and args.path == "plain":
+        parser.error("--sync times the kernels' device loop; --path plain "
+                     "has none")
+    device = require_cuda() if args.device is None else torch.device(args.device)
+    leaves = args.leaves or 50_000
 
     results: List[Dict] = []
+
+    def emit(res: Dict) -> None:
+        results.append(res)
+        print(json.dumps(res), flush=True)
+
     if not args.skip_verify:
         ok = verify_paths_match(device=device)
         print(json.dumps({"suite": "verify_paths_match", "ok": ok,
@@ -796,20 +1125,17 @@ def main(argv=None) -> None:
                                                   device=device)
                 else:
                     res = bench_poseidon(batch, total, mode, pipeline,
-                                         device=device)
+                                         device=device, path=args.path)
                 res["label"] = label
-                results.append(res)
-                print(json.dumps(res))
+                emit(res)
 
     if args.suite in ("all", "merkle"):
         for n_leaves, arity in dict.fromkeys(
-                [(args.leaves, args.arity), NORTH_STAR_BUILD]):
-            res = bench_merkle_build(n_leaves, arity, device=device)
-            results.append(res)
-            print(json.dumps(res))
+                [(leaves, args.arity), NORTH_STAR_BUILD]):
+            emit(bench_merkle_build(n_leaves, arity, device=device))
 
     if args.suite in ("all", "proofs"):
-        shape = (args.proofs, args.leaves, args.arity)
+        shape = (args.proofs or 5_000, leaves, args.arity)
         rows = [
             lambda: bench_proof_generation(*shape, device=device),
             lambda: bench_batch_verify(
@@ -823,30 +1149,57 @@ def main(argv=None) -> None:
             rows.append(lambda: bench_batch_verify_tampered(*shape,
                                                             device=device))
         for row in rows:
-            res = row()
-            results.append(res)
-            print(json.dumps(res), flush=True)
+            emit(row())
 
     if args.suite == "updates":
-        res = bench_incremental_update(args.leaves, args.arity, device=device)
-        results.append(res)
-        print(json.dumps(res))
+        res = bench_incremental_update(leaves, args.arity, device=device)
+        emit(res)
         if not res["roots_consistent"]:
             raise SystemExit("updates: incremental and rebuilt levels differ")
 
     if args.suite == "trees":
         results.extend(bench_tree_matrix(device=device))
 
+    if args.suite == "compare":
+        res = bench_merkle_compare(leaves, args.arity, device=device)
+        emit(res)
+        if not res["trees_consistent"]:
+            raise SystemExit("compare: the plain and accelerated trees differ")
+
+    if args.suite == "sweep":
+        rows = bench_merkle_sweep(
+            args.arities or SWEEP_ARITIES, args.sizes or SWEEP_SIZES,
+            args.proofs or 256, device=device)
+        results.extend(rows)
+        declined = [r["arity"] for r in rows
+                    if r["suite"] == "batch_verify" and not r["all_valid"]]
+        if declined:
+            raise SystemExit(f"sweep: honest proofs declined at arity "
+                             f"{declined}")
+
+    if args.suite == "verify":
+        res = run_hardware_verify(
+            args.verify_out, stress=args.stress, device=device,
+            batch=args.batch or 256, n_leaves=args.leaves or 4099,
+            proofs=args.proofs or 512)
+        results.append(res)
+        if not res["all_ok"]:
+            failed = sorted(k for k, v in res["checks"].items() if not v)
+            raise SystemExit(f"hardware verification FAILED: {failed}; see "
+                             f"{args.verify_out}")
+
     if args.suite == "scaling":
         if args.weak:
-            rows = bench_weak_scaling(args.leaves, args.arity, args.devices)
+            rows = bench_weak_scaling(leaves, args.arity, args.devices,
+                                      device=args.device)
         else:
-            rows = [bench_sharded_build(args.leaves, args.arity, args.devices)]
+            rows = [bench_sharded_build(leaves, args.arity, args.devices,
+                                        device=args.device)]
         for res in rows:
-            results.append(res)
-            print(json.dumps(res))
+            emit(res)
 
     _print_summary(results, device)
+    return results
 
 
 if __name__ == "__main__":

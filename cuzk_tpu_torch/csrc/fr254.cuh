@@ -305,6 +305,30 @@ __device__ __forceinline__ Vec<N> add_rr(const Vec<N>& a, const Vec<N>& b) {
   return s;
 }
 
+// The reference's subtract (field_arithmetic.cpp:184-219) for any operands
+// < 2^256: d = a - b mod 2^256 by a borrow chain; when it borrows (a < b),
+// p is added with its 2^256 carry dropped.  That is (a + p) - b mod 2^256,
+// the reference's pre-add of p, with no reduce.  The borrow selects p as a
+// mask, so the add runs unconditionally.
+template <int N>
+__device__ __forceinline__ Vec<N> sub(const Vec<N>& a, const Vec<N>& b) {
+  Vec<N> r;
+  const uint32_t p[NL] = {FR254_P};
+  FR254_UNROLL
+  for (int e = 0; e < N; e++) {
+    uint32_t d[NL];
+    d[0] = sub_cc(a.e[e].v[0], b.e[e].v[0]);
+    FR254_UNROLL
+    for (int i = 1; i < NL; i++) d[i] = subc_cc(a.e[e].v[i], b.e[e].v[i]);
+    const uint32_t mask = subc(0, 0);  // all ones after a borrow
+    r.e[e].v[0] = add_cc(d[0], p[0] & mask);
+    FR254_UNROLL
+    for (int i = 1; i < NL - 1; i++) r.e[e].v[i] = addc_cc(d[i], p[i] & mask);
+    r.e[e].v[NL - 1] = addc(d[NL - 1], p[NL - 1] & mask);
+  }
+  return r;
+}
+
 // ---------------------------------------------------------------------------
 // Products
 // ---------------------------------------------------------------------------

@@ -142,6 +142,7 @@ enum FrOp {
   OP_REDUCE_WIDE = 6,
   OP_RED = 7,
   OP_MUL_SMALL_RR = 8,
+  OP_SUB = 9,
 };
 
 __global__ void __launch_bounds__(FR_OP_THREADS)
@@ -186,6 +187,10 @@ __global__ void __launch_bounds__(FR_OP_THREADS)
     }
     case OP_RED:
       r = red(x);
+      break;
+    case OP_SUB:
+      y.e[0] = load(b + e * NL);
+      r = sub(x, y);
       break;
     default: {  // OP_MUL_SMALL_RR
       const uint32_t cs[1] = {c};

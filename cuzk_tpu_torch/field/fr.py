@@ -46,6 +46,15 @@ def int_to_digits(x: int, ndigits: int = NDIGITS) -> np.ndarray:
     )
 
 
+def digits_to_int(d) -> int:
+    """One element's digit vector (any length; torch, numpy or a list) ->
+    Python int, each digit counted by its value."""
+    d = as_digits(d)
+    if d.dim() != 1:
+        raise ValueError("digits_to_int takes a single element; use array_to_ints")
+    return sum(int(v) << (DIGIT_BITS * i) for i, v in enumerate(d.cpu().tolist()))
+
+
 def ints_to_array(xs: Sequence[int], ndigits: int = NDIGITS,
                   device=None) -> torch.Tensor:
     """Sequence of ints -> ``[n, ndigits]`` int64 digit tensor."""
@@ -175,6 +184,16 @@ def carry(cols: torch.Tensor) -> torch.Tensor:
 
 _P = constants.P
 
+# The digits of the constants (numpy uint32 ``[16]``), as
+# ``cuzk_tpu.field.fr`` names them.
+P_DIGITS = int_to_digits(_P)
+P2_DIGITS = int_to_digits(2 * _P)
+P4_DIGITS = int_to_digits(4 * _P)
+K_DIGITS = int_to_digits(constants.K)
+ZERO_DIGITS = int_to_digits(0)
+ONE_DIGITS = int_to_digits(1)
+TWO_DIGITS = int_to_digits(2)
+
 
 @functools.lru_cache(maxsize=None)
 def _const(x: int, device: torch.device) -> torch.Tensor:
@@ -237,6 +256,46 @@ def add_rr(a, b) -> torch.Tensor:
     return _cond_sub_p(
         _carry_keep(as_digits(a) + as_digits(b), passes=1)[0]
     )
+
+
+def _sub_borrow(a, b):
+    """``((a - b) mod 2^256, a < b)`` of the operands' values mod 2^256
+    (digits are read by value, as :func:`carry` reads them): one carrying
+    add of a and the complement of b, plus 1; its carry out is a >= b."""
+    a, b = torch.broadcast_tensors(carry(as_digits(a)), carry(as_digits(b)))
+    cols = a + (DIGIT_MASK - b)
+    cols[..., 0] += 1
+    diff, c = _carry_keep(cols, passes=1)
+    return diff, c == 0
+
+
+def geq(a, b) -> torch.Tensor:
+    """a >= b over the batch, on the values mod 2^256."""
+    return ~_sub_borrow(a, b)[1]
+
+
+def sub(a, b) -> torch.Tensor:
+    """The reference's subtract (field_arithmetic.cpp:184-219): if a < b, p
+    is pre-added with its 2^256 carry dropped; then the difference with
+    the final borrow dropped.  No reduce, so operands >= p can give a
+    result >= p.  Equal to ``cuzk_tpu_torch.oracle.sub`` on the values
+    mod 2^256 (a digit >= 2^16 counts by value); ``cuzk_tpu.field.fr.sub``
+    reads digits one by one and agrees on canonical digits."""
+    diff, borrow = _sub_borrow(a, b)
+    plus_p = _carry_keep(diff + _const(_P, diff.device), passes=1)[0]
+    return torch.where(borrow[..., None], plus_p, diff)
+
+
+def eq(a, b) -> torch.Tensor:
+    """Digit-by-digit equality over the batch (as ``cuzk_tpu.field.fr.eq``:
+    no carry, so a digit >= 2^16 is compared as it stands)."""
+    a, b = torch.broadcast_tensors(as_digits(a), as_digits(b))
+    return (a == b).all(dim=-1)
+
+
+def is_zero(a) -> torch.Tensor:
+    """All digits zero, over the batch."""
+    return (as_digits(a) == 0).all(dim=-1)
 
 
 # ---------------------------------------------------------------------------

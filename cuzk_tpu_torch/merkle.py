@@ -16,6 +16,9 @@ verify kernel; on the CPU the plain versions run.  Host data (numpy,
 lists) with no ``device`` goes to the card, and raises without one: the
 CPU runs only for ``device="cpu"`` or tensors on the CPU
 (:func:`~cuzk_tpu_torch.utils.device.resolve_device`).
+:func:`engine_path` forces the plain versions on the card (``"plain"``),
+or the kernels (``"kernel"``, which raises on CPU tensors), for the level
+loops of builds, updates and verification.
 
 Beyond build, proofs and per-proof verify: the deduplicated batch verify
 with per-proof failure isolation (:func:`verify_each`, :func:`verify_all`:
@@ -26,6 +29,7 @@ MerkleUtils helpers.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from dataclasses import dataclass
@@ -34,7 +38,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from cuzk_tpu_torch import constants, native, poseidon
+from cuzk_tpu_torch import constants, native, oracle, poseidon
 from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.ops import poseidon_cuda
 from cuzk_tpu_torch.utils import errors
@@ -45,6 +49,58 @@ MIN_ARITY = constants.MIN_ARITY
 MAX_ARITY = constants.MAX_ARITY
 # merkle_tree.hpp:20 — the default config height (advisory, as in cuzk_tpu).
 DEFAULT_TREE_HEIGHT = 20
+
+
+# ---------------------------------------------------------------------------
+# The hash engine of the host-driven level loops
+# ---------------------------------------------------------------------------
+
+ENGINE_PATHS = ("plain", "kernel")
+_PATH_OVERRIDE: List[str] = []
+
+
+@contextlib.contextmanager
+def engine_path(path: str):
+    """Force the hash engine of tree building, updates and verification:
+    ``"plain"`` (the plain PyTorch sponge and verify, on whatever device
+    the tensors lie, the card included) or ``"kernel"`` (K1 and K3; on CPU
+    tensors it raises, it never falls back).  Overrides nest; the innermost
+    wins and is popped on exit, exceptions included.  With no override the
+    route follows the device: the kernels on a card, the plain versions on
+    the CPU.  The counterpart of ``cuzk_tpu.merkle.engine_path`` (``"jnp"``
+    and ``"pallas"`` there), for the benchmark's plain-against-accelerated
+    comparison (merkle_tree_cuda.cu:648-856)."""
+    if path not in ENGINE_PATHS:
+        raise errors.ValidationError(
+            f"engine path must be one of {ENGINE_PATHS}, got {path!r}")
+    _PATH_OVERRIDE.append(path)
+    try:
+        yield
+    finally:
+        _PATH_OVERRIDE.pop()
+
+
+def _engine(device: torch.device) -> str:
+    """The engine on ``device``: the innermost :func:`engine_path`, else
+    ``"kernel"`` on a card and ``"plain"`` on the CPU.  Raises when the
+    kernels are forced on the CPU."""
+    if not _PATH_OVERRIDE:
+        return "plain" if device.type == "cpu" else "kernel"
+    path = _PATH_OVERRIDE[-1]
+    if path == "kernel" and device.type == "cpu":
+        raise errors.ValidationError(
+            'engine_path("kernel") needs tensors on a CUDA device; the CPU '
+            "has only the plain path")
+    return path
+
+
+def _engine_hash_multiple(groups: torch.Tensor) -> torch.Tensor:
+    """``[g, n, 16]`` digit groups -> ``[g, 16]`` hashes (ds=3) on the
+    engine :func:`_engine` picks for their device: K1, or the plain
+    sponge."""
+    if _engine(groups.device) == "kernel":
+        return poseidon_cuda.hash_multiple_cuda(groups)
+    return poseidon.hash_multiple(groups)
 
 
 @dataclass(frozen=True)
@@ -59,35 +115,23 @@ class MerkleConfig:
 
 
 @functools.lru_cache(maxsize=None)
-def _empty_hash_digits(arity: int, device: torch.device) -> torch.Tensor:
-    """hash_multiple(arity zeros) as ``[16]`` digits on ``device``, hashed
-    there once per arity (merkle_tree.cpp:347-357).  Callers copy it."""
-    zeros = fr.zeros((1, arity), device=device)
-    return poseidon_cuda.hash_multiple_cuda(zeros)[0]
-
-
 def empty_hash_int(arity: int) -> int:
-    """hash_multiple(arity zeros) as an int (merkle_tree.cpp:347-357), a
-    constant computed once on the CPU's plain path."""
-    return fr.array_to_ints(_empty_hash_digits(arity, torch.device("cpu")))[0]
+    """hash_multiple(arity zeros) as an int (merkle_tree.cpp:347-357), from
+    the oracle, once per arity."""
+    return oracle.empty_hash(arity)
 
 
-def padded_leaf_count(n: int, arity: int) -> int:
-    """Next power of arity >= n, minimum 1 (merkle_tree.cpp:49-53)."""
-    padded = 1
-    while padded < n:
-        padded *= arity
-    return padded
+@functools.lru_cache(maxsize=None)
+def _empty_hash_digits(arity: int, device: torch.device) -> torch.Tensor:
+    """:func:`empty_hash_int` as ``[16]`` digits on ``device``, once per
+    arity and device.  Callers copy it."""
+    return torch.as_tensor(
+        fr.int_to_digits(empty_hash_int(arity)).astype(np.int64), device=device
+    )
 
 
-def tree_height(leaf_count: int, arity: int) -> int:
-    """Levels including the leaves, ceil(log_a(n)) + 1 in exact integer
-    arithmetic (merkle_tree.cpp:359-367)."""
-    padded, height = 1, 1
-    while padded < leaf_count:
-        padded *= arity
-        height += 1
-    return height
+padded_leaf_count = oracle.padded_leaf_count
+tree_height = oracle.tree_height
 
 
 def calculate_max_leaves(height: int, arity: int) -> int:
@@ -119,24 +163,21 @@ def _build_levels_cuda(padded: torch.Tensor, arity: int,
     return levels
 
 
-def _build_levels_plain(padded: torch.Tensor, arity: int,
-                        trees: int = 1) -> List[torch.Tensor]:
+def _build_levels(padded: torch.Tensor, arity: int,
+                  trees: int = 1) -> List[torch.Tensor]:
+    """All levels of ``trees`` trees whose padded leaves lie side by side
+    in ``padded`` (each a power of arity, so no group crosses two trees).
+    The kernel engine (:func:`_engine`) keeps the levels in limbs between
+    K1 launches (:func:`_build_levels_cuda`); the plain one runs the plain
+    sponge a level."""
+    if _engine(padded.device) == "kernel":
+        return _build_levels_cuda(padded, arity, trees)
     levels = [padded]
     level = padded
     while level.shape[0] > trees:
         level = poseidon.hash_multiple(level.reshape(-1, arity, fr.NDIGITS))
         levels.append(level)
     return levels
-
-
-def _build_levels(padded: torch.Tensor, arity: int,
-                  trees: int = 1) -> List[torch.Tensor]:
-    """All levels of ``trees`` trees whose padded leaves lie side by side
-    in ``padded`` (each a power of arity, so no group crosses two trees):
-    the plain sponge on the CPU, K1 elsewhere."""
-    if padded.device.type == "cpu":
-        return _build_levels_plain(padded, arity, trees)
-    return _build_levels_cuda(padded, arity, trees)
 
 
 def build_tree_levels(leaves, arity: int = 2, device=None) -> List[torch.Tensor]:
@@ -304,7 +345,7 @@ def verify_proofs(positions, siblings, leaves, root, arity: int,
     siblings = fr.as_digits(siblings, device=device)
     root = fr.as_digits(root, device=device)
     _check_proof_shapes(positions, siblings, leaves, root, arity)
-    if device.type == "cpu":
+    if _engine(device) == "plain":
         return _verify_plain(positions, siblings, leaves, root, arity)
     return _verify_cuda(positions, siblings, leaves, root, arity)
 
@@ -570,9 +611,10 @@ def _dedup_verify_levels(arity: int, sizes: tuple, kb: int, tb: int,
     ``packed`` is the wire as int32 words on the device:
     ``[value table (tb x 8) | root (8) | idx section | cidx (n0 x arity) |
     sidx (sum n_L x (arity-1), L >= 1)]``.  The table and root words are
-    ``fr.pack16`` words, which on a card are K1's limbs as they stand; on
-    the CPU they unpack to digits and the plain sponge runs (the plain
-    version).  The idx section is ``[jp (kb: j0 << 3 | pos0) | lm (h == 1:
+    ``fr.pack16`` words, which on the kernel engine are K1's limbs as
+    they stand; on the plain engine (:func:`_engine`: the CPU, or an
+    ``engine_path("plain")`` override) they unpack to digits and the plain
+    sponge runs (the plain version).  The idx section is ``[jp (kb: j0 << 3 | pos0) | lm (h == 1:
     lidx; lm16: lidx << 16 | m1; else lidx then m1) | per level L >= 1:
     ent_idx(n_L) pos(n_L) | per level L >= 2: checks(n_{L-1})]``.
 
@@ -596,11 +638,9 @@ def _dedup_verify_levels(arity: int, sizes: tuple, kb: int, tb: int,
     )
     o = tb * hw
     table, root = packed[:o].view(tb, hw), packed[o:o + hw]
-    if packed.device.type == "cpu":
+    if _engine(packed.device) == "plain":
         table, root = fr.unpack16(table), fr.unpack16(root)
-
-        def hash_groups(groups):
-            return poseidon.hash_multiple(groups)
+        hash_groups = _engine_hash_multiple
     else:
         def hash_groups(groups):
             return poseidon_cuda.sponge_limbs(groups.contiguous(),
@@ -803,15 +843,16 @@ def verify_all(positions, siblings, leaves, root, arity: int,
 def _update_paths(arity: int, idx: torch.Tensor, vals: torch.Tensor,
                   levels) -> List[torch.Tensor]:
     """New levels with ``vals`` at leaf rows ``idx`` (unique) and each
-    affected group rehashed per level: one sponge launch per level on a
-    card.  Duplicate parents recompute the same value."""
+    affected group rehashed per level (:func:`_engine_hash_multiple`: one
+    K1 launch per level on a card).  Duplicate parents recompute the same
+    value."""
     levels = [lv.clone() for lv in levels]
     levels[0][idx] = vals
     lane = torch.arange(arity, device=idx.device)
     for L in range(len(levels) - 1):
         pidx = idx // arity
         rows = (pidx * arity)[:, None] + lane
-        levels[L + 1][pidx] = poseidon_cuda.hash_multiple_cuda(levels[L][rows])
+        levels[L + 1][pidx] = _engine_hash_multiple(levels[L][rows])
         idx = pidx
     return levels
 
@@ -978,31 +1019,13 @@ def optimal_arity(leaf_count: int) -> int:
 def generate_test_leaves(count: int, seed: int = 42,
                          device=None) -> torch.Tensor:
     """Deterministic mt19937_64 leaves as ``[count, 16]`` digits
-    (merkle_tree.cpp:443-457): one u64 draw per leaf."""
-    draws = np.array(_mt19937_64(seed, count), dtype=np.uint64)
+    (merkle_tree.cpp:443-457): one u64 draw per leaf
+    (:func:`cuzk_tpu_torch.oracle.generate_test_leaves`)."""
+    draws = np.array(oracle.generate_test_leaves(count, seed), dtype=np.uint64)
     digits = np.zeros((count, fr.NDIGITS), np.int64)
     for i in range(4):
         digits[:, i] = (draws >> np.uint64(16 * i)) & np.uint64(fr.DIGIT_MASK)
     return torch.as_tensor(digits, device=device)
-
-
-def _mt19937_64(seed: int, count: int) -> List[int]:
-    """The first ``count`` outputs of ``std::mt19937_64(seed)``."""
-    n, m, mask = 312, 156, (1 << 64) - 1
-    mt = [seed & mask]
-    for i in range(1, n):
-        mt.append((6364136223846793005 * (mt[-1] ^ (mt[-1] >> 62)) + i) & mask)
-    out = []
-    while len(out) < count:
-        for i in range(n):  # the twist
-            y = (mt[i] & 0xFFFFFFFF80000000) | (mt[(i + 1) % n] & 0x7FFFFFFF)
-            mt[i] = mt[(i + m) % n] ^ (y >> 1) ^ (0xB5026F5AA96619E9 * (y & 1))
-        for x in mt[: count - len(out)]:  # tempering
-            x ^= (x >> 29) & 0x5555555555555555
-            x ^= (x << 17) & 0x71D67FFFEDA60000
-            x ^= (x << 37) & 0xFFF7EEE000000000
-            out.append((x ^ (x >> 43)) & mask)
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ from cuzk_tpu_torch.ops.poseidon_cuda import (
     LANES,
     choose_lanes,
     fr_op_cuda,
+    fr_op_limbs,
     hash_multiple_cuda,
     hash_multiple_cuda_packed,
     hash_pair_cuda,
@@ -34,6 +35,7 @@ __all__ = [
     "LANES",
     "choose_lanes",
     "fr_op_cuda",
+    "fr_op_limbs",
     "hash_multiple_cuda",
     "hash_multiple_cuda_packed",
     "hash_pair_cuda",

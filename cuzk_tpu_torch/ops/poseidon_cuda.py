@@ -40,6 +40,7 @@ which kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -59,7 +60,7 @@ LANES = (1, 3)
 launch_counts = {"sponge": 0, "verify": 0, "permutation": 0, "fr_op": 0}
 
 # Op codes of the per-op check kernel (csrc/poseidon_kernels.cu::FrOp),
-# each with its plain version.
+# each with its plain version; _BINARY_FR_OPS read a second operand.
 FR_OPS = {
     "mul": (0, fr.mul),
     "square": (1, fr.square),
@@ -70,7 +71,9 @@ FR_OPS = {
     "reduce_wide": (6, fr.reduce_wide),
     "red": (7, fr.red),
     "mul_small_rr": (8, fr.mul_small),  # reduced operand, c <= 26
+    "sub": (9, fr.sub),
 }
+_BINARY_FR_OPS = ("mul", "add_wrap_red", "add_rr", "sub")
 
 
 def reset_launch_counts() -> None:
@@ -398,31 +401,52 @@ def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
 # The per-op check kernel
 # ---------------------------------------------------------------------------
 
+def fr_op_limbs(op: str, a: torch.Tensor, b: Optional[torch.Tensor] = None,
+                c: int = 0) -> torch.Tensor:
+    """The check kernel on limbs: ``a [n, 8]`` int32 on the card (``[n,
+    16]``, low half first, for ``reduce_wide``), ``b [n, 8]`` for the binary
+    ops -> ``[n, 8]`` int32, one field operation of the device library per
+    element."""
+    kernels = _build.kernels()
+    code = FR_OPS[op][0]
+    _check_limbs(a, "a", 2)
+    n = a.shape[0]
+    if a.shape[1] != (2 * NL if op == "reduce_wide" else NL):
+        raise ValidationError(f"{op}: a has the wrong width, {tuple(a.shape)}")
+    if (b is None) == (op in _BINARY_FR_OPS):
+        raise ValidationError(
+            f"{op} takes {'two operands' if op in _BINARY_FR_OPS else 'one'}")
+    if b is not None:
+        _check_limbs(b, "b", 2)
+        if tuple(b.shape) != (n, NL) or b.device != a.device:
+            raise ValidationError(f"{op}: b must be [{n}, {NL}] limbs beside a")
+    out = torch.empty((n, NL), dtype=torch.int32, device=a.device)
+    if n:
+        _launch(kernels, kernels.lib.cuzk_fr_op, a.device, code, a.data_ptr(),
+                (a if b is None else b).data_ptr(), c, out.data_ptr(), n)
+        launch_counts["fr_op"] += 1
+    return out
+
+
 def fr_op_cuda(op: str, a, b=None, c: int = 0) -> torch.Tensor:
     """One field operation of the device library on ``[n, 16]`` digits
     (``reduce_wide`` takes ``[n, 32]``): ``b`` for the binary ops, the
     constant ``c`` for ``mul_small`` and ``mul_small_rr`` (whose operand
-    must be reduced, c <= 26).  The plain ``fr`` op on the CPU."""
-    code, plain = FR_OPS[op]
+    must be reduced, c <= 26).  The plain ``fr`` op on the CPU, the check
+    kernel (:func:`fr_op_limbs`) elsewhere."""
+    plain = FR_OPS[op][1]
     a = _on_device(a)
     if a.device.type == "cpu":
         if op in ("mul_small", "mul_small_rr"):
             return plain(a, c)
         return plain(a) if b is None else plain(a, b)
-    kernels = _build.kernels()
+    _build.kernels()
     n = a.shape[0]
     width = 2 * ND if op == "reduce_wide" else ND
     if a.dim() != 2 or a.shape[1] != width:
         raise ValidationError(f"{op} takes [n, {width}] digits, got {a.shape}")
     al = fr.digits_to_limbs(a.reshape(n, -1, ND)).reshape(n, -1).contiguous()
-    bl = al
+    bl = None
     if b is not None:
         bl = fr.digits_to_limbs(fr.as_digits(b, device=a.device)).contiguous()
-        if tuple(bl.shape) != (n, NL):
-            raise ValidationError(f"{op}: b must be [{n}, 16] digits")
-    out = torch.empty((n, NL), dtype=torch.int32, device=a.device)
-    if n:
-        _launch(kernels, kernels.lib.cuzk_fr_op, a.device,
-                code, al.data_ptr(), bl.data_ptr(), c, out.data_ptr(), n)
-        launch_counts["fr_op"] += 1
-    return fr.limbs_to_digits(out)
+    return fr.limbs_to_digits(fr_op_limbs(op, al, bl, c))

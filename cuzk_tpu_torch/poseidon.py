@@ -19,6 +19,7 @@ import torch
 
 from cuzk_tpu_torch import constants
 from cuzk_tpu_torch.field import fr
+from cuzk_tpu_torch.utils.device import resolve_device
 
 T = constants.T
 RATE = constants.RATE
@@ -57,6 +58,9 @@ class PoseidonParams:
                 "alpha=5) is supported"
             )
 
+
+# The reference parameter block (poseidon.hpp:8-16).
+DEFAULT_PARAMS = PoseidonParams()
 
 # Round constants as [64, 3, 16] uint32 digits (poseidon.cpp:33-44), the
 # same array as cuzk_tpu.poseidon.RC_DIGITS.
@@ -180,3 +184,41 @@ def hash_multiple(inputs) -> torch.Tensor:
     """Batched n-input hash, ds=3 (poseidon.cpp:98-101):
     ``[..., n, 16] -> [..., 16]``."""
     return sponge(inputs, DS_MULTIPLE)
+
+
+# ---------------------------------------------------------------------------
+# Host helpers, ints in and ints out (as cuzk_tpu.poseidon's), through the
+# kernels on the card by default (ops.hash_*_cuda) or the plain sponge for
+# device="cpu".  ops imports this module, so it is imported here lazily.
+# ---------------------------------------------------------------------------
+
+def _ops():
+    from cuzk_tpu_torch.ops import poseidon_cuda
+
+    return poseidon_cuda
+
+
+def _digits(ints, device) -> torch.Tensor:
+    return fr.ints_to_array(ints, device=resolve_device(device))
+
+
+def hash_single_int(x: int, device=None) -> int:
+    """``hash_single`` of one int (ds=1)."""
+    return fr.array_to_ints(_ops().hash_single_cuda(_digits([x], device)))[0]
+
+
+def hash_pair_int(left: int, right: int, device=None) -> int:
+    """``hash_pair`` of two ints (ds=2)."""
+    return fr.array_to_ints(_ops().hash_pair_cuda(
+        _digits([left], device), _digits([right], device)))[0]
+
+
+def hash_multiple_int(inputs, device=None) -> int:
+    """``hash_multiple`` of a sequence of ints (ds=3); the empty sequence
+    hashes to 0 with no permutation (the device rule still applies)."""
+    inputs = list(inputs)
+    if not inputs:
+        resolve_device(device)
+        return 0
+    return fr.array_to_ints(
+        _ops().hash_multiple_cuda(_digits(inputs, device)[None]))[0]

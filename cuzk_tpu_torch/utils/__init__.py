@@ -1,6 +1,14 @@
-"""Cross-cutting utilities: validators and exception types, timing, and
-device checks."""
+"""Cross-cutting utilities: field-element I/O, validators and exception
+types, timing, and device checks."""
 
+from cuzk_tpu_torch.utils.io import (
+    from_decimal,
+    from_hex,
+    random_element,
+    random_elements,
+    to_decimal,
+    to_hex,
+)
 from cuzk_tpu_torch.utils.errors import (
     ComputationError,
     CudaUnavailableError,
@@ -27,6 +35,12 @@ from cuzk_tpu_torch.utils.device import (
 )
 
 __all__ = [
+    "to_hex",
+    "from_hex",
+    "to_decimal",
+    "from_decimal",
+    "random_element",
+    "random_elements",
     "ComputationError",
     "CudaUnavailableError",
     "IndexError_",

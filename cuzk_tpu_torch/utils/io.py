@@ -3,7 +3,7 @@
 The counterpart of ``cuzk_tpu.utils.io``: the reference's FieldElement
 string interface (field_arithmetic.cpp:103-159) and its mt19937_64-based
 ``FieldArithmetic::random`` (field_arithmetic.cpp:340-351), on the port's
-own generator (``merkle._mt19937_64``) and its plain ``fr.red``.  Elements
+own generator (``oracle.mt19937_64``) and its plain ``fr.red``.  Elements
 are ``[16]`` (or ``[n, 16]``) int64 digit tensors.
 """
 
@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from cuzk_tpu_torch import merkle
+from cuzk_tpu_torch import oracle
 from cuzk_tpu_torch.field import fr
 
 
@@ -56,7 +56,7 @@ def random_elements(count: int, seed: Optional[int] = None) -> torch.Tensor:
     """``[count, 16]`` reduced elements: four mt19937_64 draws per element,
     little-endian, then ``red`` (field_arithmetic.cpp:340-351); the seed
     defaults to 42."""
-    draws = merkle._mt19937_64(42 if seed is None else seed, 4 * count)
+    draws = oracle.mt19937_64(42 if seed is None else seed, 4 * count)
     vals = [
         sum(d << (64 * i) for i, d in enumerate(draws[4 * e:4 * e + 4]))
         for e in range(count)

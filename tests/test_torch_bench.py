@@ -6,11 +6,18 @@ the CPU is a device metric.  Records carry the keys of the JAX suite's
 records (``cuzk_tpu.bench.run``), plus the card.
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
 from cuzk_tpu_torch import merkle
 from cuzk_tpu_torch.bench import profile, run
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 POSEIDON_KEYS = {
     "suite", "mode", "path", "pipelined", "batch", "total_hashes",
@@ -197,7 +204,154 @@ def test_the_suites_the_cli_offers():
     assert run.NORTH_STAR_BUILD == (1_048_576, 8)
     assert merkle.padded_leaf_count(*run.NORTH_STAR_BUILD) == 8 ** 7
     for suite in ("all", "poseidon", "merkle", "proofs", "updates", "trees",
-                  "scaling"):
+                  "scaling", "compare", "sweep", "verify"):
         assert f"--suite {suite}" in run.__doc__
     with pytest.raises(SystemExit):
-        run.main(["--suite", "sweep"])  # not ported yet
+        run.main(["--suite", "nonesuch"])
+    with pytest.raises(SystemExit):
+        run.main(["--suite", "poseidon", "--sync", "--path", "plain"])
+
+
+# ---------------------------------------------------------------------------
+# The compare, sweep and verify suites and the CLI on the CPU
+# ---------------------------------------------------------------------------
+
+def test_compare_suite_through_main(capsys):
+    rows = run.main(["--suite", "compare", "--leaves", "3", "--arity", "4",
+                     "--device", "cpu", "--skip-verify"])
+    (res,) = rows
+    assert res["suite"] == "merkle_compare" and res["trees_consistent"]
+    assert (res["leaves"], res["arity"], res["card"]) == (3, 4, "cpu")
+    assert res["accelerated_ms"] > 0 and res["reference_path_ms"] > 0
+    assert "merkle_compare" in capsys.readouterr().out
+
+
+def test_compare_raises_when_the_trees_differ(monkeypatch):
+    """The in-bench check fails the run: a plain path that gives another
+    root makes ``main`` exit non-zero."""
+    real = merkle._build_levels
+
+    def wrong_when_plain(padded, arity, trees=1):
+        levels = real(padded, arity, trees)
+        if merkle._PATH_OVERRIDE:
+            levels[-1] = levels[-1] ^ 1
+        return levels
+
+    monkeypatch.setattr(merkle, "_build_levels", wrong_when_plain)
+    with pytest.raises(SystemExit, match="differ"):
+        run.main(["--suite", "compare", "--leaves", "5", "--arity", "2",
+                  "--device", "cpu", "--skip-verify"])
+
+
+def test_sweep_suite_through_main():
+    rows = run.main(["--suite", "sweep", "--arities", "2,4", "--sizes",
+                     "64,256", "--proofs", "16", "--device", "cpu",
+                     "--skip-verify"])
+    builds = [(r["arity"], r["leaves"]) for r in rows
+              if r["suite"] == "merkle_build"]
+    verifies = [(r["arity"], r["leaves"], r["proofs"], r["dedupe"])
+                for r in rows if r["suite"] == "batch_verify"]
+    assert builds == [(2, 64), (2, 256), (4, 64), (4, 256)]
+    assert verifies == [(2, 256, 16, False), (4, 256, 16, False)]
+    # The sweep's verify rows skip the plain host gate.
+    assert all(r["all_valid"] and r["paths_consistent"] is None for r in rows
+               if r["suite"] == "batch_verify")
+    assert run.SWEEP_ARITIES == tuple(range(2, 9))
+    assert run.SWEEP_SIZES == (64, 256, 1024, 4096)
+
+
+def test_sweep_exits_when_honest_proofs_are_declined(monkeypatch):
+    real = run.bench_batch_verify
+
+    def declining(*args, **kwargs):
+        res = real(*args, **kwargs)
+        return dict(res, all_valid=res["arity"] != 4)
+
+    monkeypatch.setattr(run, "bench_batch_verify", declining)
+    with pytest.raises(SystemExit, match=r"arity \[4\]"):
+        run.main(["--suite", "sweep", "--arities", "2,4", "--sizes", "16",
+                  "--proofs", "4", "--device", "cpu", "--skip-verify"])
+
+
+def test_verify_suite_writes_its_artifact(tmp_path):
+    out = tmp_path / "CUDA_VERIFY.json"
+    rows = run.main(["--suite", "verify", "--batch", "64", "--leaves", "9",
+                     "--proofs", "8", "--verify-out", str(out),
+                     "--device", "cpu", "--skip-verify"])
+    with open(out) as f:
+        art = json.load(f)
+    assert rows[-1]["all_ok"] and art["all_ok"]
+    assert art["device"] == "cpu" and art["backend"] == "cpu"
+    assert art["n_random_inputs"] == 64 and art["stress"] is False
+    assert art["tree"] == {"leaves": 9, "arities": [2, 4, 8], "proofs": 8}
+    want = {f"{op}_{way}_vs_oracle"
+            for op in ("pairs", "single", "multiple", "permutation")
+            for way in ("kernel", "plain", "native")}
+    want |= {"golden_hash_single_42", "golden_hash_pair_10_20",
+             "build_arity2_vs_oracle", "build_arity4_vs_oracle",
+             "build_arity8_vs_oracle", "merkle_root_native_vs_oracle",
+             "verify_kernel_all_valid",
+             "verify_kernel_detects_tamper", "dedup_all_valid",
+             "dedup_detects_tamper"}
+    assert set(art["checks"]) == want and all(art["checks"].values())
+    assert run.VERIFY_OUT == os.path.join("chiprun_out", "CUDA_VERIFY.json")
+
+
+def test_verify_suite_fails_loudly(monkeypatch, tmp_path):
+    """A wrong kernel output fails its check, and ``main`` exits non-zero
+    naming it."""
+    real = run.pc.hash_pair_cuda
+    monkeypatch.setattr(run.pc, "hash_pair_cuda",
+                        lambda l, r: real(l, r) ^ 1)
+    with pytest.raises(SystemExit, match="pairs_kernel_vs_oracle"):
+        run.main(["--suite", "verify", "--batch", "8", "--leaves", "5",
+                  "--proofs", "2", "--verify-out", str(tmp_path / "v.json"),
+                  "--device", "cpu", "--skip-verify"])
+    with open(tmp_path / "v.json") as f:
+        art = json.load(f)
+    assert not art["all_ok"] and not art["checks"]["pairs_kernel_vs_oracle"]
+    assert not art["checks"]["golden_hash_pair_10_20"]
+
+
+def test_cli_alias_runs_main():
+    from cuzk_tpu_torch.bench import cli
+
+    assert cli.main is run.main
+    out = subprocess.run(
+        [sys.executable, "-m", "cuzk_tpu_torch.bench.cli", "--help"],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0 and "--suite" in out.stdout
+
+
+def test_plain_path_rows(capsys):
+    """``--path plain`` runs the poseidon suite on the plain sponge,
+    synchronously, and says so in its rows."""
+    rows = run.main(["--suite", "poseidon", "--path", "plain", "--batch", "8",
+                     "--total", "16", "--device", "cpu", "--skip-verify"])
+    assert [r["mode"] for r in rows] == ["pairs", "single"]
+    for r in rows:
+        assert r["path"] == "torch" and not r["pipelined"] and r["bit_exact"]
+        assert r["label"] == "Custom" and r["total_hashes"] == 16
+    rows = run.main(["--suite", "poseidon", "--path", "plain", "--pipeline",
+                     "--mode", "pairs", "--batch", "8", "--total", "16",
+                     "--device", "cpu", "--skip-verify"])
+    assert rows[0]["pipelined"] and rows[0]["path"] == "torch"
+
+
+def test_device_option_runs_the_cpu_and_defaults_to_the_card(monkeypatch):
+    rows = run.main(["--suite", "poseidon", "--mode", "single", "--batch",
+                     "8", "--total", "8", "--device", "cpu", "--skip-verify"])
+    assert rows[0]["card"] == "cpu" and rows[0]["path"] == "torch"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from cuzk_tpu_torch.utils import errors
+
+    with pytest.raises(errors.CudaUnavailableError):
+        run.main(["--suite", "compare"])
+
+
+def test_time_fn_is_the_mean_of_time_fn_stats():
+    calls = []
+    sec = run.time_fn(lambda x: calls.append(x), 3, device="cpu", iters=4,
+                      warmup=1)
+    assert calls == [3] * 5 and sec >= 0.0

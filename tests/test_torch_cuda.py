@@ -55,7 +55,7 @@ def test_fr_op_kernel_matches_plain(op, cuda_device):
     elif op == "add_rr":
         ra = fr.red(a)
         got, want = poseidon_cuda.fr_op_cuda(op, ra, b), plain(ra, b)
-    elif op in ("mul", "add_wrap_red"):
+    elif op in ("mul", "add_wrap_red", "sub"):
         got, want = poseidon_cuda.fr_op_cuda(op, a, b), plain(a, b)
     else:
         got, want = poseidon_cuda.fr_op_cuda(op, a), plain(a)
@@ -417,3 +417,92 @@ def test_launcher_ranks_on_the_card(nproc, cuda_device):
     leaves = np.random.default_rng(17).integers(
         0, 1 << 16, (4096 * nproc, 16), dtype=np.uint32)
     assert res["root0"] == int(merkle.merkle_root(leaves, 8)[0])
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: the device sub, batch field ops, engine_path, the int helpers
+# ---------------------------------------------------------------------------
+
+def test_fr_op_sub_on_edge_operands(cuda_device):
+    """Every pair of 0, 1, p - 1, p, p + 1, 2^256 - 1 and two random values:
+    a < b (p pre-added), a == b, operands >= p (no reduce)."""
+    from cuzk_tpu_torch import oracle as port_oracle
+
+    vals = [0, 1, oracle.P - 1, oracle.P, oracle.P + 1, (1 << 256) - 1,
+            0x1234 << 200, oracle.P >> 1]
+    pairs = [(x, y) for x in vals for y in vals]
+    a = fr.ints_to_array([x for x, _ in pairs], device=cuda_device)
+    b = fr.ints_to_array([y for _, y in pairs], device=cuda_device)
+    got = poseidon_cuda.fr_op_cuda("sub", a, b)
+    assert torch.equal(got, fr.sub(a, b))
+    assert fr.array_to_ints(got) == [port_oracle.sub(x, y) for x, y in pairs]
+    al, bl = fr.digits_to_limbs(a).contiguous(), fr.digits_to_limbs(b).contiguous()
+    assert torch.equal(
+        fr.limbs_to_digits(poseidon_cuda.fr_op_limbs("sub", al, bl)), got)
+    with pytest.raises(errors.ValidationError):
+        poseidon_cuda.fr_op_cuda("sub", a)
+    with pytest.raises(errors.ValidationError):
+        poseidon_cuda.fr_op_limbs("mul", al)
+
+
+def test_batch_field_arithmetic_on_the_card(cuda_device):
+    from cuzk_tpu_torch.field.batch import BatchFieldArithmetic
+
+    rng = np.random.default_rng(61)
+    a, b = digits(rng, (4099,), cuda_device), digits(rng, (4099,), cuda_device)
+    ops = BatchFieldArithmetic()
+    assert ops.initialize()
+    before = dict(poseidon_cuda.launch_counts)
+    for method, plain, args in [
+        ("batch_add", fr.add, (a, b)), ("batch_subtract", fr.sub, (a, b)),
+        ("batch_multiply", fr.mul, (a, b)), ("batch_square", fr.square, (a,)),
+        ("batch_power5", fr.power5, (a,)), ("batch_reduce", fr.red, (a,)),
+    ]:
+        got = getattr(ops, method)(*args)
+        assert got.is_cuda and torch.equal(got, plain(*args)), method
+    assert poseidon_cuda.launch_counts["fr_op"] - before["fr_op"] == 6
+    assert ops.stats.total_hashes == 6 * 4099
+    host = ops.batch_subtract(a.cpu().numpy(), b.cpu().numpy())
+    assert host.is_cuda and torch.equal(host, fr.sub(a, b))
+    three_d = ops.batch_multiply(a.view(-1, 1, 16), b[:1])  # broadcasts
+    assert torch.equal(three_d, fr.mul(a.view(-1, 1, 16), b[:1]))
+
+
+def test_engine_path_plain_on_card_tensors(cuda_device):
+    """engine_path("plain") runs the plain sponge and verify on the card,
+    launching no kernel, and gives the kernel route's digits."""
+    rng = np.random.default_rng(62)
+    leaves = digits(rng, (300,), cuda_device)
+    levels = merkle.build_tree_levels(leaves, 4)
+    idx = torch.arange(0, 300, 7, device=cuda_device)
+    pos, sib = merkle.generate_proofs(levels, 4, idx)
+    proved = levels[0][idx].clone()
+    proved[3, 0] ^= 1
+    vals = digits(rng, (5,), cuda_device)
+    uidx = [1, 50, 99, 200, 299]
+    want_up = merkle.update_tree_levels(levels, 4, uidx, vals)
+    want_ok = merkle.verify_proofs(pos, sib, proved, levels[-1][0], 4)
+    poseidon_cuda.reset_launch_counts()
+    with merkle.engine_path("plain"):
+        plain = merkle.build_tree_levels(leaves, 4)
+        up = merkle.update_tree_levels(plain, 4, uidx, vals)
+        ok = merkle.verify_proofs(pos, sib, proved, levels[-1][0], 4)
+    assert set(poseidon_cuda.launch_counts.values()) == {0}
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(plain, levels))
+    assert all(torch.equal(a, b) for a, b in zip(up, want_up))
+    assert torch.equal(ok, want_ok) and not bool(ok[3])
+    with merkle.engine_path("kernel"):
+        forced = merkle.build_tree_levels(leaves, 4)
+    assert all(torch.equal(a, b) for a, b in zip(forced, levels))
+    assert poseidon_cuda.launch_counts["sponge"] == len(levels) - 1
+
+
+def test_int_helpers_on_the_card(cuda_device):
+    from cuzk_tpu_torch import oracle as port_oracle
+
+    assert poseidon.hash_single_int(42) == port_oracle.hash_single(42)
+    assert poseidon.hash_pair_int(10, 20) == \
+        0x2DD359F92D31C747E06C02B360A9F5C761777B285EDCF09724EFEF5CBD51D9BA
+    assert poseidon.hash_multiple_int(range(1, 10)) == \
+        port_oracle.hash_multiple(list(range(1, 10)))
+    assert poseidon.hash_multiple_int([]) == 0

@@ -189,3 +189,151 @@ def test_fr_op_wrapper_runs_plain_on_cpu_tensors():
         assert torch.equal(poseidon_cuda.fr_op_cuda("mul", a, b), fr.mul(a, b))
         assert torch.equal(poseidon_cuda.fr_op_cuda("mul_small", a, c=26),
                            fr.mul_small(a, 26))
+
+
+# ---------------------------------------------------------------------------
+# sub, geq, eq, is_zero, digits_to_int and the digit constants
+# ---------------------------------------------------------------------------
+
+def sub_operands(seed):
+    """Pairs with operands >= p, a < b, a == b and the edges."""
+    rng = np.random.default_rng(seed)
+    edges = [0, 1, oracle.P - 1, oracle.P, oracle.P + 1, TOP]
+    xs = edges + _ints(rng, BATCH, 1 << 256) + _ints(rng, 2, oracle.P)
+    ys = list(reversed(edges)) + _ints(rng, BATCH, 1 << 256) + xs[-2:]
+    return xs, ys
+
+
+def test_sub_matches_jax_and_oracle():
+    xs, ys = sub_operands(19)
+    assert any(x < y for x, y in zip(xs, ys)) and xs[-1] == ys[-1]
+    got = fr.sub(fr.ints_to_array(xs), fr.ints_to_array(ys))
+    assert fr.array_to_ints(got) == [oracle.sub(x, y) for x, y in zip(xs, ys)]
+    jax_out = jfr.sub(jfr.ints_to_array(xs), jfr.ints_to_array(ys))
+    assert np.array_equal(as_np(got), np.asarray(jax_out))
+    from cuzk_tpu_torch import oracle as port_oracle
+
+    assert fr.array_to_ints(got) == [port_oracle.sub(x, y)
+                                     for x, y in zip(xs, ys)]
+
+
+def test_sub_and_geq_read_non_canonical_digits_by_value():
+    """A digit >= 2^16 counts by its value (trap (f)), as in every other op
+    of the port: (65536 + 1, digit 0 holding 2^16 + 1) - 1 = 2^16.  The JAX
+    package's digit-wise borrow reads such a digit on its own (it gives 0
+    here), so the comparison with it stays on canonical digits."""
+    a = fr.ints_to_array([65537, 5, 3])
+    a[0, 0] += 1 << 16
+    a[0, 1] -= 1  # same value 65537, digit 0 non-canonical
+    a[2, 15] += 1 << 16  # value 3 + 2^256: wraps to 3
+    b = fr.ints_to_array([1, 7, 3])
+    assert fr.array_to_ints(fr.sub(a, b)) == [
+        oracle.sub(65537, 1), oracle.sub(5, 7), oracle.sub(3, 3)]
+    assert fr.geq(a, b).tolist() == [True, False, True]
+
+
+def test_geq_eq_is_zero_match_jax():
+    xs, ys = sub_operands(20)
+    a, b = fr.ints_to_array(xs), fr.ints_to_array(ys)
+    ja, jb = jfr.ints_to_array(xs), jfr.ints_to_array(ys)
+    assert fr.geq(a, b).tolist() == np.asarray(jfr.geq(ja, jb)).tolist() == \
+        [x >= y for x, y in zip(xs, ys)]
+    assert fr.eq(a, b).tolist() == np.asarray(jfr.eq(ja, jb)).tolist() == \
+        [x == y for x, y in zip(xs, ys)]
+    assert fr.is_zero(a).tolist() == np.asarray(jfr.is_zero(ja)).tolist() == \
+        [x == 0 for x in xs]
+    assert fr.eq(a, a[3]).tolist() == [x == xs[3] for x in xs]  # broadcasts
+
+
+def test_digits_to_int_and_constants():
+    rng = np.random.default_rng(21)
+    for x in [0, 1, oracle.P, TOP] + _ints(rng, 4, 1 << 256):
+        d = jfr.int_to_digits(x)
+        assert fr.digits_to_int(d) == jfr.digits_to_int(d) == x
+        assert fr.digits_to_int(torch.as_tensor(d.astype(np.int64))) == x
+        assert fr.digits_to_int(list(d)) == x
+    wide = jfr.int_to_digits(TOP * TOP, jfr.NDIGITS_WIDE)
+    assert fr.digits_to_int(wide) == TOP * TOP
+    with pytest.raises(ValueError):
+        fr.digits_to_int(np.zeros((2, 16)))
+    for name in ("P_DIGITS", "P2_DIGITS", "P4_DIGITS", "K_DIGITS",
+                 "ZERO_DIGITS", "ONE_DIGITS", "TWO_DIGITS"):
+        assert np.array_equal(getattr(fr, name), getattr(jfr, name)), name
+        assert getattr(fr, name).dtype == np.uint32
+
+
+def test_field_package_exports_the_jax_names():
+    import cuzk_tpu.field as jfield
+    import cuzk_tpu_torch.field as field
+
+    assert field.__all__ == jfield.__all__
+    for name in field.__all__:
+        assert getattr(field, name) is not None
+
+
+# ---------------------------------------------------------------------------
+# BatchFieldArithmetic
+# ---------------------------------------------------------------------------
+
+BATCH_OPS = [
+    ("batch_add", 2, oracle.add),
+    ("batch_subtract", 2, oracle.sub),
+    ("batch_multiply", 2, oracle.mul),
+    ("batch_square", 1, oracle.square),
+    ("batch_power5", 1, oracle.power5),
+    ("batch_reduce", 1, oracle.red),
+]
+
+
+@pytest.mark.parametrize("method,arity,ref", BATCH_OPS,
+                         ids=[m for m, _, _ in BATCH_OPS])
+def test_batch_field_arithmetic_matches_jax(method, arity, ref):
+    from cuzk_tpu.field.batch import BatchFieldArithmetic as JBatch
+    from cuzk_tpu_torch.field.batch import BatchFieldArithmetic
+
+    xs, ys = sub_operands(22)
+    ops = BatchFieldArithmetic(device="cpu")
+    jops = JBatch()
+    assert ops.initialize() is True and jops.initialize() is True
+    args = [fr.ints_to_array(xs), fr.ints_to_array(ys)][:arity]
+    jargs = [jfr.ints_to_array(xs), jfr.ints_to_array(ys)][:arity]
+    got = getattr(ops, method)(*args)
+    want = getattr(jops, method)(*jargs)
+    assert np.array_equal(as_np(got), np.asarray(want))
+    operands = list(zip(xs, ys)) if arity == 2 else [(x,) for x in xs]
+    assert fr.array_to_ints(got) == [ref(*v) for v in operands]
+    # Host data with device="cpu", and a lone element (the stats add its
+    # leading axis, 16, as the JAX class does).
+    getattr(ops, method)(*[np.asarray(a) for a in jargs])
+    getattr(jops, method)(*jargs)
+    getattr(ops, method)(*[a[0] for a in args])
+    getattr(jops, method)(*[a[0] for a in jargs])
+    assert ops.stats.total_hashes == jops.stats.total_hashes == 2 * len(xs) + 16
+    assert ops.stats.total_time_s > 0 and ops.stats.hashes_per_second > 0
+    assert ops.cleanup() is None and jops.cleanup() is None
+
+
+def test_batch_field_arithmetic_devices(monkeypatch):
+    """CPU tensors take the plain ops with no device given; host data with
+    no device goes to the card, and raises without one."""
+    from cuzk_tpu_torch.field.batch import BatchFieldArithmetic
+    from cuzk_tpu_torch.utils import errors
+
+    xs, ys = sub_operands(23)
+    a, b = fr.ints_to_array(xs), fr.ints_to_array(ys)
+    assert torch.equal(BatchFieldArithmetic().batch_subtract(a, b),
+                       fr.sub(a, b))
+    assert torch.equal(BatchFieldArithmetic().batch_add(a, b[0]),
+                       fr.add(a, b[0]))  # broadcasts
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(errors.CudaUnavailableError):
+        BatchFieldArithmetic().batch_multiply(np.asarray(a), np.asarray(b))
+    with pytest.raises(errors.CudaUnavailableError):
+        BatchFieldArithmetic().initialize()
+
+
+def test_fr_op_sub_runs_plain_on_cpu_tensors():
+    xs, ys = sub_operands(24)
+    a, b = fr.ints_to_array(xs), fr.ints_to_array(ys)
+    assert poseidon_cuda.FR_OPS["sub"] == (9, fr.sub)
+    assert torch.equal(poseidon_cuda.fr_op_cuda("sub", a, b), fr.sub(a, b))

@@ -78,13 +78,15 @@ void h_fr_op(int op, const uint32_t* a, const uint32_t* b, uint32_t c, uint32_t*
     else if (op == 5) r = mul_small(x, c);
     else if (op == 6) { Wide w[1]; for (int i = 0; i < NL; i++) { w[0].lo[i] = a[e*16+i]; w[0].hi[i] = a[e*16+8+i]; } r = reduce_wide(w); }
     else if (op == 7) r = red(x);
-    else { const uint32_t cs[1] = {c}; r = mul_small_rr(x, cs); }
+    else if (op == 8) { const uint32_t cs[1] = {c}; r = mul_small_rr(x, cs); }
+    else { y.e[0] = load(b + e * NL); r = sub(x, y); }
     store(out + e * NL, r.e[0]); } }
 }
 """
 
 OPS = {"mul": 0, "square": 1, "power5": 2, "add_wrap_red": 3, "add_rr": 4,
-       "mul_small": 5, "reduce_wide": 6, "red": 7, "mul_small_rr": 8}
+       "mul_small": 5, "reduce_wide": 6, "red": 7, "mul_small_rr": 8,
+       "sub": 9}
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +145,8 @@ def test_field_op_body(op, host_kernels):
         "red": (a, b, 0, fr.red(a)),
         # the reduced operand at its edge: (p - 1) 26 >> 256 = 4
         "mul_small_rr": (ra, rb, 26, fr.mul_small(ra, 26)),
+        # operands >= p, a < b (the pre-add of p) and a == b, by value
+        "sub": (a, b, 0, fr.sub(a, b)),
     }
     if op == "reduce_wide":
         wide = fr.mul_wide(a, b)
@@ -198,3 +202,24 @@ def test_raw_permutation_body(host_kernels):
     out = np.zeros_like(x)
     host_kernels.h_perm(x.ctypes.data, out.ctypes.data, 2)
     assert torch.equal(digits_of(out), poseidon.permutation(st))
+
+
+def test_sub_body_on_every_edge_pair(host_kernels):
+    """The device subtract on every pair of 0, 1, p - 1, p, p + 1, 2^256 - 1
+    and a random value: a < b (p pre-added, its 2^256 carry dropped),
+    a == b, and operands >= p (no reduce), against plain ``fr.sub`` and
+    the oracle."""
+    from cuzk_tpu_torch import oracle
+
+    vals = [0, 1, constants.P - 1, constants.P, constants.P + 1,
+            (1 << 256) - 1, 0x1234 << 200]
+    pairs = [(x, y) for x in vals for y in vals]
+    a = fr.ints_to_array([x for x, _ in pairs])
+    b = fr.ints_to_array([y for _, y in pairs])
+    out = np.zeros((len(pairs), 8), np.uint32)
+    al, bl = limbs(a), limbs(b)
+    host_kernels.h_fr_op(OPS["sub"], al.ctypes.data, bl.ctypes.data, 0,
+                         out.ctypes.data, len(pairs))
+    got = digits_of(out)
+    assert torch.equal(got, fr.sub(a, b))
+    assert fr.array_to_ints(got) == [oracle.sub(x, y) for x, y in pairs]

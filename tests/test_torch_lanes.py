@@ -266,6 +266,6 @@ def test_fr_op_on_cpu_tensors_runs_the_plain_op(op):
                 "red": ai}[op]
     else:
         got = poseidon_cuda.fr_op_cuda(op, a, b)
-        want = ([oracle.mul(x, y) for x, y in zip(ai, bi)] if op == "mul"
-                else [oracle.add(x, y) for x, y in zip(ai, bi)])
+        ref = {"mul": oracle.mul, "sub": oracle.sub}.get(op, oracle.add)
+        want = [ref(x, y) for x, y in zip(ai, bi)]
     assert got.device.type == "cpu" and fr.array_to_ints(got) == want

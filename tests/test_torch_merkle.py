@@ -183,3 +183,108 @@ def test_test_leaves_past_one_mt19937_64_twist():
         merkle.generate_test_leaves(700, 42).numpy(),
         jmerkle.generate_test_leaves(700, 42).astype(np.int64),
     )
+
+
+# ---------------------------------------------------------------------------
+# engine_path: the forced hash engine of the host-driven level loops
+# ---------------------------------------------------------------------------
+
+def test_engine_path_plain_builds_updates_and_verifies_like_the_default():
+    n, arity = 17, 4
+    lv = torch.as_tensor(leaves_np(n).astype(np.int64))
+    default = trees(n, arity)[0]
+    idx = [0, 5, 16]
+    pos, sib = merkle.generate_proofs(default, arity, idx)
+    proved = default[0][idx].clone()
+    proved[1, 0] ^= 1
+    vals = torch.as_tensor(leaves_np(3).astype(np.int64))
+    with merkle.engine_path("plain"):
+        levels = merkle.build_tree_levels(lv, arity)
+        updated = merkle.update_tree_levels(levels, arity, idx, vals)
+        verdicts = merkle.verify_proofs(pos, sib, proved, default[-1][0], arity)
+        each = merkle.verify_each(pos.numpy(), sib.numpy().astype(np.uint32),
+                                  proved.numpy().astype(np.uint32),
+                                  default[-1][0].numpy().astype(np.uint32),
+                                  arity, dedupe=True, device=CPU)
+    assert all(torch.equal(a, b) for a, b in zip(levels, default))
+    want = merkle.update_tree_levels(default, arity, idx, vals)
+    assert all(torch.equal(a, b) for a, b in zip(updated, want))
+    assert verdicts.tolist() == each.tolist() == [True, False, True]
+
+
+def test_engine_path_kernel_on_cpu_tensors_raises():
+    lv = torch.as_tensor(leaves_np(16).astype(np.int64))
+    levels = merkle.build_tree_levels(lv, 2)
+    pos, sib = merkle.generate_proofs(levels, 2, [3])
+    with merkle.engine_path("kernel"):
+        with pytest.raises(errors.ValidationError, match="kernel"):
+            merkle.build_tree_levels(lv, 2)
+        with pytest.raises(errors.ValidationError):
+            merkle.update_tree_levels(levels, 2, [1], lv[:1])
+        with pytest.raises(errors.ValidationError):
+            merkle.verify_proofs(pos, sib, lv[3:4], levels[-1][0], 2)
+        with pytest.raises(errors.ValidationError):
+            merkle._engine_hash_multiple(lv.reshape(-1, 2, 16))
+    with pytest.raises(errors.ValidationError):
+        with merkle.engine_path("pallas"):
+            pass
+
+
+def test_engine_path_nests_and_pops_on_exceptions():
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    assert (merkle._engine(cpu), merkle._engine(card)) == ("plain", "kernel")
+    with merkle.engine_path("plain"):
+        assert merkle._engine(card) == "plain"
+        with merkle.engine_path("kernel"):
+            assert merkle._engine(card) == "kernel"
+            with pytest.raises(RuntimeError):
+                with merkle.engine_path("plain"):
+                    assert merkle._engine(card) == "plain"
+                    raise RuntimeError("inside")
+            assert merkle._engine(card) == "kernel"
+        assert merkle._engine(card) == "plain"
+    assert merkle._PATH_OVERRIDE == []
+    assert merkle._engine(card) == "kernel"
+
+
+def test_engine_path_plain_keeps_a_non_cpu_device_off_the_kernels(monkeypatch):
+    """On a device that is not the CPU the default route is the kernels
+    (which raise here, with no card), and engine_path("plain") runs the
+    plain sponge on that device instead: shown on the meta device, with the
+    plain sponge replaced by a spy that only records its calls."""
+    calls = []
+
+    def plain_spy(groups):
+        calls.append((tuple(groups.shape), groups.device.type))
+        return torch.zeros(groups.shape[:-2] + (16,), dtype=groups.dtype,
+                           device=groups.device)
+
+    monkeypatch.setattr(merkle.poseidon, "hash_multiple", plain_spy)
+    x = torch.zeros((16, 16), dtype=torch.int64, device="meta")
+    with merkle.engine_path("plain"):
+        levels = merkle._build_levels(x, 4)
+        merkle._update_paths(4, torch.tensor([3], device="meta"), x[:1], levels)
+    assert [tuple(t.shape) for t in levels] == [(16, 16), (4, 16), (1, 16)]
+    assert calls == [((4, 4, 16), "meta"), ((1, 4, 16), "meta"),
+                     ((1, 4, 16), "meta"), ((1, 4, 16), "meta")]
+    with pytest.raises(errors.CudaUnavailableError):
+        merkle._build_levels(x, 4)
+
+
+def test_dedup_program_under_plain_equals_the_default():
+    n, arity = 16, 4
+    lv = leaves_np(n)
+    levels = trees(n, arity)[0]
+    idx = np.arange(n)
+    pos, sib = merkle.generate_proofs(levels, arity, idx)
+    args = (pos.numpy(), sib.numpy().astype(np.uint32), lv,
+            levels[-1][0].numpy().astype(np.uint32))
+    wire = merkle._dedup_pack(*args, arity)
+    packed = merkle._upload(wire.packed, torch.device("cpu"))
+    run = lambda: merkle._dedup_verify_levels(  # noqa: E731
+        arity, wire.sizes, wire.kb, wire.tb, wire.lm16, packed)
+    flags, bad = run()
+    with merkle.engine_path("plain"):
+        flags_p, bad_p = run()
+    assert flags.tolist() == flags_p.tolist() == [True, True]
+    assert torch.equal(bad, bad_p)

@@ -36,8 +36,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "cuzk_tpu_torch",
     "cuzk_tpu_torch.constants",
+    "cuzk_tpu_torch.oracle",
     "cuzk_tpu_torch.field",
     "cuzk_tpu_torch.field.fr",
+    "cuzk_tpu_torch.field.batch",
     "cuzk_tpu_torch.poseidon",
     "cuzk_tpu_torch.merkle",
     "cuzk_tpu_torch.native",
@@ -53,6 +55,7 @@ MODULES = [
     "cuzk_tpu_torch.bench",
     "cuzk_tpu_torch.bench.headline",
     "cuzk_tpu_torch.bench.run",
+    "cuzk_tpu_torch.bench.cli",
     "cuzk_tpu_torch.bench.profile",
     "cuzk_tpu_torch.bench.mp_scaling",
     "cuzk_tpu_torch.parallel",
@@ -68,6 +71,7 @@ def test_import_pulls_no_jax_and_builds_nothing():
         "from cuzk_tpu_torch.ops import _build\n"
         "from cuzk_tpu_torch import native\n"
         "assert _build._kernels is None and native._lib is None\n"
+        "assert native._oracle_lib is None\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'cuzk_tpu')))\n"
     )
@@ -84,6 +88,67 @@ def test_import_pulls_no_jax_and_builds_nothing():
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(_build, "_kernels", None)
+
+
+def test_package_serves_every_subpackage_lazily():
+    """``cuzk_tpu_torch.parallel``, ``.native`` and ``.oracle`` resolve
+    through the package, as ``cuzk_tpu``'s do, in a fresh interpreter that
+    then holds no jax, no ``cuzk_tpu`` and nothing built."""
+    code = (
+        "import sys\n"
+        "import cuzk_tpu_torch as p\n"
+        "assert set(p.__all__) >= {'oracle', 'parallel', 'native'}\n"
+        "mods = [p.parallel, p.native, p.oracle, p.field, p.bench]\n"
+        "assert p.oracle.hash_pair(10, 20) == int('2dd359f92d31c747e06c02b3"
+        "60a9f5c761777b285edcf09724efef5cbd51d9ba', 16)\n"
+        "assert callable(p.parallel.sharded_build_levels)\n"
+        "assert p.native._lib is None and p.native._oracle_lib is None\n"
+        "from cuzk_tpu_torch.ops import _build\n"
+        "assert _build._kernels is None\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'cuzk_tpu')))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    import cuzk_tpu
+    import cuzk_tpu_torch
+
+    assert set(cuzk_tpu.__all__) == set(cuzk_tpu_torch.__all__)
+    with pytest.raises(AttributeError):
+        cuzk_tpu_torch.nonesuch
+
+
+def test_slice6_entries_raise_without_a_gpu(no_cuda):
+    """The int helpers, the batch field ops, the new suites and a forced
+    kernel engine raise without a card; nothing falls back to the CPU."""
+    from cuzk_tpu_torch.bench import run
+    from cuzk_tpu_torch.field.batch import BatchFieldArithmetic
+
+    with pytest.raises(errors.CudaUnavailableError):
+        poseidon.hash_pair_int(10, 20)
+    with pytest.raises(errors.CudaUnavailableError):
+        poseidon.hash_multiple_int([])
+    with pytest.raises(errors.CudaUnavailableError):
+        BatchFieldArithmetic().batch_subtract(np.zeros((2, 16), np.uint32),
+                                              np.zeros((2, 16), np.uint32))
+    meta = torch.zeros((2, 16), dtype=torch.int64, device="meta")
+    with pytest.raises(errors.CudaUnavailableError):
+        poseidon_cuda.fr_op_cuda("sub", meta, meta)
+    limbs = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(errors.CudaUnavailableError):
+        poseidon_cuda.fr_op_limbs("sub", limbs, limbs)
+    for suite in ("verify", "compare", "sweep"):
+        with pytest.raises(errors.CudaUnavailableError):
+            run.main(["--suite", suite, "--skip-verify"])
+    with pytest.raises(errors.CudaUnavailableError):
+        run.run_hardware_verify()
+    with merkle.engine_path("kernel"):
+        with pytest.raises(errors.CudaUnavailableError):
+            merkle._engine_hash_multiple(meta[:, None])
 
 
 def test_cuda_entries_raise_without_a_gpu(no_cuda):
@@ -220,6 +285,8 @@ def test_sources_ship_with_the_package():
     from cuzk_tpu_torch import native as port_native
 
     assert os.path.exists(port_native.SOURCE) and "native/*.cpp" in project
+    assert os.path.exists(port_native.ORACLE_SOURCE)
+    assert os.path.exists(os.path.join(REPO, "cuzk_tpu_torch", "PARITY.md"))
 
 
 def test_launch_counts_reset():

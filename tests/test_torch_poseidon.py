@@ -9,6 +9,8 @@ calls stay at batch <= 8 and width <= 8, where they share the suite's
 compiled sponge programs; width 9 is checked against the oracle.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -249,3 +251,19 @@ def test_device_loops_take_plain_path_on_cpu():
                        poseidon.hash_pair(poseidon.hash_pair(x, y), y))
     assert torch.equal(poseidon_cuda.hash_single_cuda_loop(x, 2),
                        poseidon.hash_single(poseidon.hash_single(x)))
+
+
+def test_int_helpers_match_jax_and_the_oracle():
+    assert poseidon.DEFAULT_PARAMS == poseidon.PoseidonParams()
+    assert dataclasses.asdict(poseidon.DEFAULT_PARAMS) == \
+        dataclasses.asdict(jpos.DEFAULT_PARAMS)
+    assert poseidon.hash_single_int(42, device=CPU) == \
+        jpos.hash_single_int(42) == oracle.hash_single(42)
+    top = (1 << 256) - 1
+    assert poseidon.hash_pair_int(top, 7, device=CPU) == \
+        jpos.hash_pair_int(top, 7) == oracle.hash_pair(top, 7)
+    for inputs in ([], [5], [1, 2, 3], list(range(9))):
+        assert poseidon.hash_multiple_int(inputs, device=CPU) == \
+            jpos.hash_multiple_int(inputs) == oracle.hash_multiple(inputs)
+    assert poseidon.hash_multiple_int(iter([1, 2]), device=CPU) == \
+        oracle.hash_multiple([1, 2])
