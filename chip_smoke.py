@@ -169,6 +169,20 @@ SHARDED_RANKS = (1, 4)
 TAMPERED_1M = (17, 1234, 4321)  # leaf, sibling, position
 
 
+# K1's and K3's registers as their core compiles with nvcc 12.9 for sm_90a:
+# K4's own core beside it must leave their code as it was.
+K1_K3_PTXAS = {
+    "sponge_kernel<1>": 96, "sponge_kernel<3>": 72,
+    "verify_kernel<1>": 128, "verify_kernel<3>": 80,
+}
+# Phase 7's K4 sweep (states a launch) and the batch field op's shapes:
+# phase 2's operand count and one launch that fills the card many times.
+K4_SWEEP = (4096, 16384, 65536, 262144, 1048576)
+FR_SUB_LARGE = 4_194_304
+# S-boxes a permutation: 8 full rounds of three, 56 partial rounds of one.
+SBOXES_PER_PERMUTATION = 80
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -207,6 +221,69 @@ def tamper_1m(pos, sib, proved):
     sib[TAMPERED_1M[1], 3, 5, 7] ^= 1
     pos[TAMPERED_1M[2], 6] = (pos[TAMPERED_1M[2], 6] + 1) % ARITY_1M
     return pos, sib, proved
+
+
+def sass_instructions(library: str, kernel: str):
+    """``(counts, loops)`` of ``kernel`` in ``library``'s SASS
+    (``cuobjdump -sass``, from the toolkit that built it): one
+    ``(address, opcode)`` per instruction, and the ``(start, end)``
+    addresses of each backward branch's loop.  None without cuobjdump."""
+    import re
+    import shutil
+
+    from cuzk_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            return None
+    sass = subprocess.run([tool, "-sass", library], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if not re.search(rf"\d{kernel}E", name):
+            continue
+        pat = r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);"
+        insts = [(int(a, 16), op, rest) for a, op, rest in re.findall(pat, body)]
+        loops = [(int(m.group(1), 16), addr) for addr, op, rest in insts
+                 if op == "BRA" for m in [re.search(r"0x([0-9a-f]+)", rest)]
+                 if m and int(m.group(1), 16) < addr]
+        return [(a, op) for a, op, _ in insts], loops
+    raise SmokeFailure(f"{kernel} not found in the SASS of {library}")
+
+
+def k4_dynamic_counts(insts, loops):
+    """SASS instructions one permutation of K4 issues, by opcode class.
+    permute_rounds_ilp is two loops: the rounds (64 trips) and, inside,
+    the S-box (3 trips in a full round, 1 in a partial one: 80 in all).
+    The instructions outside both run once; branches inside a loop body are
+    counted as taken in full (the mh != 0 fold runs on all but tiny
+    products)."""
+    if len(loops) != 2:
+        raise SmokeFailure(f"K4's SASS has {len(loops)} loops, not 2: {loops}")
+    (s0, e0), (s1, e1) = sorted(loops, key=lambda l: l[1] - l[0])
+    inner = lambda a: s0 <= a <= e0  # noqa: E731
+    outer = lambda a: s1 <= a <= e1  # noqa: E731
+
+    def cls(op):
+        for c in ("IMAD.WIDE", "IMAD.HI", "IMAD.X", "IMAD", "IADD3", "SEL",
+                  "LDC"):
+            if op.startswith(c) or (c == "LDC" and op.startswith("ULDC")):
+                return c
+        return "other"
+
+    from cuzk_tpu_torch import constants
+
+    counts = {}
+    for addr, op in insts:
+        trips = (SBOXES_PER_PERMUTATION if inner(addr)
+                 else constants.TOTAL_ROUNDS if outer(addr) else 1)
+        counts[cls(op)] = counts.get(cls(op), 0) + trips
+    static = {"kernel": len(insts),
+              "sbox_loop": sum(inner(a) for a, _ in insts),
+              "round_loop": sum(outer(a) for a, _ in insts)}
+    return counts, static
 
 
 def sharded_rank(argv) -> None:
@@ -560,20 +637,37 @@ def slice6_phase(dev, name_power, a, b, sms, clock_hz):
     for name in ("sponge", "verify", "permutation"):
         check(slice6[name] > 0, f"kernel {name} never ran in the slice-6 path")
 
-    # fr_op's sub at phase 2's shape: the kernel alone on limbs, its
-    # wrapper on digits (three digit<->limb conversions around it) and the
-    # plain fr.sub.  Its bound is its bytes (two operands read, one result
-    # written, 32 bytes each), far above its 25 integer operations an
-    # element at 64 a clock on each SM.
+    # fr_op's sub at phase 2's shape and at FR_SUB_LARGE operands: the
+    # kernel's digit form (fr_op_cuda, what BatchFieldArithmetic calls), its
+    # limb form alone (fr_op_limbs) and the plain fr.sub.  Both forms are
+    # bound by their bytes (two operands read, one result written: 128
+    # bytes an element as digits, 32 as limbs), far above their few hundred
+    # integer operations an element at 64 a clock on each SM.
     n = a.shape[0]
     al, bl = (fr.digits_to_limbs(x).contiguous() for x in (a, b))
-    check(torch.equal(fr.limbs_to_digits(pc.fr_op_limbs("sub", al, bl)),
-                      fr.sub(a, b)), "fr_op_limbs sub != plain")
+    sub_err = max(max_abs_err(pc.fr_op_cuda("sub", a, b), fr.sub(a, b)),
+                  max_abs_err(fr.limbs_to_digits(pc.fr_op_limbs("sub", al, bl)),
+                              fr.sub(a, b)))
+    check(sub_err == 0, "fr_op sub != plain")
     sub_ms = cuda_time_ms(lambda: pc.fr_op_limbs("sub", al, bl))
-    sub_wrapper_ms = cuda_time_ms(lambda: pc.fr_op_cuda("sub", a, b))
+    sub_digits_ms = cuda_time_ms(lambda: pc.fr_op_cuda("sub", a, b))
     sub_plain_ms = cuda_time_ms(lambda: fr.sub(a, b), iters=3, warmup=1)
-    sub_bound_ms = max(3 * 32 * n / HBM_BYTES_PER_S,
-                       25 * n / (sms * 64 * clock_hz)) * 1e3
+
+    def bytes_bound_ms(count, row_bytes):
+        return max(3 * row_bytes * count / HBM_BYTES_PER_S,
+                   25 * count / (sms * 64 * clock_hz)) * 1e3
+
+    sub_bound_ms = bytes_bound_ms(n, 32)
+    sub_digits_bound_ms = bytes_bound_ms(n, 128)
+    big = [torch.as_tensor(np.random.default_rng(s).integers(
+        0, 1 << 16, (FR_SUB_LARGE, fr.NDIGITS)), device=dev) for s in (161, 162)]
+    rows = torch.arange(0, FR_SUB_LARGE, 997, device=dev)
+    sub_err = max(sub_err, max_abs_err(pc.fr_op_cuda("sub", *big)[rows],
+                                       fr.sub(big[0][rows], big[1][rows])))
+    check(sub_err == 0, "fr_op sub != plain at 4,194,304 operands")
+    sub_large_ms = cuda_time_ms(lambda: pc.fr_op_cuda("sub", *big), iters=5)
+    sub_large_bound_ms = bytes_bound_ms(FR_SUB_LARGE, 128)
+    del big
     sweep_ms = {}
     for r in sweep_rows:
         row = sweep_ms.setdefault(str(r["arity"]), {})
@@ -588,9 +682,11 @@ def slice6_phase(dev, name_power, a, b, sms, clock_hz):
           f"({suite_s['compare']:.1f} s); sweep: 28 builds, 7 verifies of 256 "
           f"proofs ok ({suite_s['sweep']:.1f} s); BatchFieldArithmetic x 6 "
           f"ops on {n} operands = plain; {len(helpers)} int helpers golden; "
-          f"native = oracle on 256 pairs; fr_op sub {sub_ms:.4f} ms (wrapper "
-          f"{sub_wrapper_ms:.3f}, plain {sub_plain_ms:.3f}, bound "
-          f"{sub_bound_ms:.4f}); slice-6 launches "
+          f"native = oracle on 256 pairs; fr_op sub at {n}: digits "
+          f"{sub_digits_ms:.4f} ms (bound {sub_digits_bound_ms:.4f}), limbs "
+          f"{sub_ms:.4f} (bound {sub_bound_ms:.4f}), plain {sub_plain_ms:.3f}; "
+          f"at {FR_SUB_LARGE}: digits {sub_large_ms:.3f} ms (bound "
+          f"{sub_large_bound_ms:.3f}); slice-6 launches "
           f"{slice6}; phase {time.perf_counter() - start_s:.1f} s on "
           f"{name_power}", flush=True)
     return slice6, {
@@ -599,9 +695,13 @@ def slice6_phase(dev, name_power, a, b, sms, clock_hz):
         "compare_50k_ms": {"accelerated": compare["accelerated_ms"],
                            "plain": compare["reference_path_ms"]},
         "sweep_ms": sweep_ms,
-        "fr_sub_ms": sub_ms, "fr_sub_wrapper_ms": sub_wrapper_ms,
+        "fr_sub_ms": sub_ms, "fr_sub_digits_ms": sub_digits_ms,
         "fr_sub_plain_ms": sub_plain_ms,
         "fr_sub_bound_ms": sub_bound_ms,
+        "fr_sub_digits_bound_ms": sub_digits_bound_ms,
+        "fr_sub_large_ms": sub_large_ms,
+        "fr_sub_large_bound_ms": sub_large_bound_ms,
+        "fr_sub_err": sub_err,
         "phase16_suite_s": suite_s,
     }
 
@@ -637,6 +737,12 @@ def main() -> None:
             check(rec.get("stack_frame") == 0 and rec.get("spill_stores") == 0
                   and rec.get("spill_loads") == 0,
                   f"{name} uses local memory: {rec}")
+    got_k1_k3 = {name: kernels.ptxas.get(name, {}).get("registers")
+                 for name in K1_K3_PTXAS}
+    check(got_k1_k3 == K1_K3_PTXAS,
+          f"K1/K3 ptxas records moved: {got_k1_k3}, expected {K1_K3_PTXAS}")
+    print(f"phase 1 K1/K3 ptxas as expected: {got_k1_k3} registers, "
+          f"0 stack, 0 spills", flush=True)
     clock_hz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
@@ -700,8 +806,35 @@ def main() -> None:
     wide = fr.mul_wide(a, b)
     op_err = max(op_err, max_abs_err(pc.fr_op_cuda("reduce_wide", wide),
                                      fr.reduce_wide(wide)))
+    # Every op in both forms (digits through fr_op_cuda, limbs through
+    # fr_op_limbs) on these operands plus non-canonical rows (d + 2^16,
+    # 2^40 - 1, read by value), against the plain op on the canonical digits
+    # of the same values (fr.carry).
+    na, nb = a.clone(), b.clone()
+    na[0, 3] += 1 << 16
+    na[1, 15] = (1 << 40) - 1
+    nb[2, 0] += 1 << 16
+    for op, (_, plain) in pc.FR_OPS.items():
+        xa, xb = ((fr.red(fr.carry(na)), fr.red(fr.carry(nb)))
+                  if op in ("add_rr", "mul_small_rr") else (na, nb))
+        c = 26 if op.startswith("mul_small") else 0
+        ca, cb = fr.carry(xa), fr.carry(xb)
+        if op == "reduce_wide":
+            args, limb_args = (torch.cat([xa, xb], 1),), (torch.cat(
+                [fr.digits_to_limbs(xa), fr.digits_to_limbs(xb)], 1),)
+            want = plain(torch.cat([ca, cb], 1))
+        elif op in pc._BINARY_FR_OPS:
+            args, limb_args = (xa, xb), tuple(map(fr.digits_to_limbs, (xa, xb)))
+            want = plain(ca, cb)
+        else:
+            args, limb_args = (xa,), (fr.digits_to_limbs(xa),)
+            want = plain(ca, c) if c else plain(ca)
+        op_err = max(op_err, max_abs_err(pc.fr_op_cuda(op, *args, c=c), want),
+                     max_abs_err(fr.limbs_to_digits(pc.fr_op_limbs(
+                         op, *(t.contiguous() for t in limb_args), c=c)), want))
     check(op_err == 0, f"fr op kernel disagrees with plain (max err {op_err})")
     print(f"phase 2 fr ops: {a.shape[0]} operands x {len(pc.FR_OPS)} ops, "
+          f"digits and limbs, non-canonical rows by value, "
           f"mul_small_rr(p - 1, 26): max_abs_err 0", flush=True)
 
     # (3) K1 against the plain sponge: every width, unreduced inputs and a
@@ -881,31 +1014,74 @@ def main() -> None:
     for name in ("sponge", "verify"):
         check(launches[name] > 0, f"kernel {name} never ran in the main path")
 
-    # (7) K4 against the plain permutation: 65,536 states of full 256-bit
-    # values (most >= p), then rows holding every combination of 0, 1,
-    # p - 1, p and 2^256 - 1 in the three lanes, a digit d + 2^16 and a
-    # digit 0xFFFFFFFF, each read by value.
+    # (7) K4 against the plain permutation, both forms (digits through
+    # permutation_cuda, limbs through permutation_limbs): 65,536 states of
+    # full 256-bit values (most >= p), then rows holding every combination
+    # of 0, 1, p - 1, p and 2^256 - 1 in the three lanes, a digit d + 2^16,
+    # a digit 0xFFFFFFFF and a digit 2^40 - 1, each read by value.
+    phase7_s = time.perf_counter()
     n_perm = 65536
     edges_int = [0, 1, constants.P - 1, constants.P, (1 << 256) - 1]
     combos = list(itertools.product(edges_int, repeat=3))
-    odd = digits((2, 3))
+    odd = digits((3, 3))
     odd[0, 1, 5] += 1 << 16
     odd[1, 0, 0] = 0xFFFFFFFF
+    odd[2, 2, 15] = (1 << 40) - 1
     states = torch.cat([
         digits((n_perm, 3)),
         row([v for c in combos for v in c]).reshape(len(combos), 3, fr.NDIGITS),
         odd,
     ])
     plain_perm = poseidon.permutation(states)
-    k4_err = max_abs_err(pc.permutation_cuda(states), plain_perm)
+    k4_err = max(max_abs_err(pc.permutation_cuda(states), plain_perm),
+                 max_abs_err(fr.limbs_to_digits(pc.permutation_limbs(
+                     fr.digits_to_limbs(states).contiguous())), plain_perm))
     check(k4_err == 0, f"K4 disagrees with the plain permutation (max err {k4_err})")
-    perm_limbs = fr.digits_to_limbs(states[:n_perm]).contiguous()
+    perm_digits = states[:n_perm].contiguous()
+    perm_limbs = fr.digits_to_limbs(perm_digits).contiguous()
     k4_ms = cuda_time_ms(lambda: pc.permutation_limbs(perm_limbs))
+    k4_digits_ms = cuda_time_ms(lambda: pc.permutation_cuda(perm_digits))
     k4_plain_ms = cuda_time_ms(lambda: poseidon.permutation(states[:n_perm]),
                                iters=1, warmup=0)
-    print(f"phase 7 permutation: {states.shape[0]} states (edge rows "
-          f"included) K4 = plain; K4 {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms "
-          f"at {n_perm} states on {name_power}", flush=True)
+    # The sweep: each shape in both forms, held against the plain
+    # permutation on 512 rows spread over the batch.
+    k4_sweep = {}
+    for n_sw in K4_SWEEP:
+        sw = digits((n_sw, 3))
+        sw_limbs = fr.digits_to_limbs(sw).contiguous()
+        rows = torch.as_tensor(np.linspace(0, n_sw - 1, 512).astype(np.int64),
+                               device=dev)
+        want = poseidon.permutation(sw[rows])
+        k4_err = max(k4_err, max_abs_err(pc.permutation_cuda(sw)[rows], want),
+                     max_abs_err(fr.limbs_to_digits(
+                         pc.permutation_limbs(sw_limbs)[rows]), want))
+        iters = max(3, 65536 * 10 // n_sw) if n_sw <= 65536 else 3
+        k4_sweep[str(n_sw)] = {
+            "limbs_ms": cuda_time_ms(lambda x=sw_limbs: pc.permutation_limbs(x),
+                                     iters=iters),
+            "digits_ms": cuda_time_ms(lambda x=sw: pc.permutation_cuda(x),
+                                      iters=iters),
+            "bound_ms": bound(n_sw, n_sw * 6 * 32)[0],
+        }
+        del sw, sw_limbs
+    check(k4_err == 0, f"K4 disagrees with plain in the sweep (max err {k4_err})")
+    # K4's SASS: the instructions a permutation issues, by opcode class,
+    # and the issue bound they set at 65,536 states (one instruction a
+    # clock on each of an SM's four schedulers).
+    sass = sass_instructions(kernels.path, "permutation_kernel")
+    k4_sass = None
+    if sass is not None:
+        counts, static = k4_dynamic_counts(*sass)
+        total = sum(counts.values())
+        k4_sass = {"per_permutation": counts, "total": total, "static": static,
+                   "issue_bound_ms": total * (n_perm / 32) / (sms * 4 * clock_hz) * 1e3}
+    print(f"phase 7 permutation: {states.shape[0]} states (edge rows and "
+          f"non-canonical digits included) K4 = plain, digits and limbs; K4 "
+          f"{k4_ms:.3f} ms on limbs, {k4_digits_ms:.3f} ms through "
+          f"permutation_cuda, plain {k4_plain_ms:.3f} ms at {n_perm} states; "
+          f"sweep {k4_sweep} = plain on 512 rows a shape; SASS {k4_sass}; "
+          f"phase {time.perf_counter() - phase7_s:.1f} s on {name_power}",
+          flush=True)
 
     pc.reset_launch_counts()
 
@@ -1259,7 +1435,21 @@ def main() -> None:
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "share": k4_bound / k4_ms, "lanes": 1,
-         "library_ms": None},
+         "library_ms": None, "digits_ms": k4_digits_ms, "sweep": k4_sweep,
+         "sass": k4_sass},
+        {"name": "fr_op", "route": "cuda",
+         "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
+         "replaces": "cuzk_tpu/field/batch.py:42",
+         "launches": sum(s["fr_op"] for s in by_slice.values()),
+         "max_abs_err": max(op_err, slice6_numbers["fr_sub_err"]),
+         "ms": slice6_numbers["fr_sub_digits_ms"],
+         "plain_ms": slice6_numbers["fr_sub_plain_ms"],
+         "bound_ms": slice6_numbers["fr_sub_digits_bound_ms"],
+         "bound_by": "bytes",
+         "share": slice6_numbers["fr_sub_digits_bound_ms"]
+         / slice6_numbers["fr_sub_digits_ms"], "lanes": 1,
+         "library_ms": None, "op": "sub",
+         "limbs_ms": slice6_numbers["fr_sub_ms"]},
     ], "pair_hashes_per_s": head["value"], "build_50k_ms": build_ms,
         "verify_5k_ms": verify_ms, "slice2_sponge_launches": slice2["sponge"],
         "poseidon_configs_hashes_per_s": rates,

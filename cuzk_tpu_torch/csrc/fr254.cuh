@@ -31,6 +31,8 @@
 //     products they divide, slower at every measured shape (PERF.md).  What
 //     pays below a wave is splitting the state's three elements across
 //     lanes instead (poseidon.cuh).
+//   - The raw permutation (K4) has forms of its own, for the pipes of a
+//     full wave (section "K4's core" below); K1 and K3 use the ones above.
 #pragma once
 
 #include <cstdint>
@@ -478,6 +480,284 @@ __device__ __forceinline__ Vec<N> mul_small_rr(const Vec<N>& a,
   return add_wrap_red(lo, hc);
 }
 
+// ---------------------------------------------------------------------------
+// K4's core: the same values as mul_wide, square_wide, reduce_wide, red and
+// mul_small_rr, formed for the pipes of a full wave.  K1 and K3 keep the
+// forms above.
+//
+// What bounds the forms above at a full wave is the integer ALU pipe, not
+// the multiplier: each multiply result costs one IMAD and one IADD3.X
+// (ptxas turns a mad.*.cc chain into products plus carry adds), and every
+// conditional subtract eight IADD3.X and eight SEL.  Hopper's IMAD.WIDE.U32
+// adds a whole 64-bit product into a register pair with carry in and out,
+// so here:
+//   - products are sums of 64-bit products, each a limb pair.  A row's
+//     products at even limb offsets go to one accumulator (E) and those at
+//     odd offsets to another (O, one limb down), so that no two products of
+//     a chain overlap; each chain is one carry chain of IMAD.WIDE.U32, and
+//     E + O 2^32 is one add chain at the end;
+//   - the reduce of a < 2^256 (a mod p, the value red gives) takes its
+//     quotient from the top limb: q = floor(a_7 / (p_7 + 1)) is floor(a / p)
+//     or one below it, so a + q (2^256 - p) (two chains of IMAD.WIDE.U32)
+//     and one conditional subtract of p leave a mod p.  Two subtracts fewer
+//     than red's 4p, 2p, p;
+//   - the mh != 0 fold of reduce_wide is a branch: it runs only where the
+//     reference's select keeps it (mh == 0 only when high < 19).
+// ---------------------------------------------------------------------------
+
+#define FR254_PNEG /* 2^256 - p */ \
+  0x0fffffffu, 0xbc1e0a6cu, 0x86468f6eu, 0xd7cc17b7u, \
+  0x7e7ea7a2u, 0x47afba49u, 0x1ece5fd6u, 0xcf9bb18du
+
+// acc[p .. p + 2n) += sum_t a b[j0 + 2t] 2^(64 t): n 64-bit products in one
+// carry chain, then the carry into acc[p + 2n] where acc has it.
+template <int M>
+__device__ __forceinline__ void mad_pairs(uint32_t (&acc)[M], int p, uint32_t a,
+                                          const uint32_t (&b)[NL], int j0, int n) {
+  if (n <= 0) return;
+  acc[p] = mad_lo_cc(a, b[j0], acc[p]);
+  acc[p + 1] = madc_hi_cc(a, b[j0], acc[p + 1]);
+  FR254_UNROLL
+  for (int t = 1; t < n; t++) {
+    acc[p + 2 * t] = madc_lo_cc(a, b[j0 + 2 * t], acc[p + 2 * t]);
+    acc[p + 2 * t + 1] = madc_hi_cc(a, b[j0 + 2 * t], acc[p + 2 * t + 1]);
+  }
+  if (p + 2 * n < M) acc[p + 2 * n] = addc(acc[p + 2 * n], 0);
+}
+
+// r = E + O 2^32 over 2N limbs (O has 2N - 1), the carry out dropped.
+template <int N>
+__device__ __forceinline__ void join_pairs(uint32_t (&r)[N], const uint32_t (&E)[N],
+                                           const uint32_t (&O)[N - 1]) {
+  r[0] = E[0];
+  r[1] = add_cc(E[1], O[0]);
+  FR254_UNROLL
+  for (int k = 2; k < N - 1; k++) r[k] = addc_cc(E[k], O[k - 1]);
+  r[N - 1] = addc(E[N - 1], O[N - 2]);
+}
+
+template <int N>
+__device__ __forceinline__ void clear(uint32_t (&a)[N]) {
+  FR254_UNROLL
+  for (int k = 0; k < N; k++) a[k] = 0;
+}
+
+// r = a * b, 16 limbs, exact (rows).  Row i's products a_i b_j sit at limb
+// i + j: those with i + j even in E, odd in O.  Every chain ends below a
+// limb that holds at most the earlier rows' carries, so nothing carries
+// further; the total is below 2^512.
+__device__ __forceinline__ void mul_wide_pairs(uint32_t (&r)[2 * NL],
+                                               const uint32_t (&a)[NL],
+                                               const uint32_t (&b)[NL]) {
+  uint32_t E[2 * NL], O[2 * NL - 1];
+  clear(E);
+  clear(O);
+  FR254_UNROLL
+  for (int i = 0; i < NL; i++) {
+    const int je = i & 1, jo = je ^ 1;
+    mad_pairs(E, i + je, a[i], b, je, NL / 2);
+    mad_pairs(O, i + jo - 1, a[i], b, jo, NL / 2);
+  }
+  join_pairs(r, E, O);
+}
+
+// Low 256 bits of a * b (rows_low): the products at limbs below 8, the
+// one at limb 7 by its low word alone, every carry out of limb 7 dropped.
+__device__ __forceinline__ void mul_low_pairs(uint32_t (&r)[NL],
+                                              const uint32_t (&a)[NL],
+                                              const uint32_t (&b)[NL]) {
+  uint32_t E[NL], O[NL - 1];
+  clear(E);
+  clear(O);
+  FR254_UNROLL
+  for (int i = 0; i < NL; i++) {
+    const int je = i & 1, jo = je ^ 1;
+    // E: pairs at limbs i + je + 2t up to limb 6, so each ends at limb 7.
+    mad_pairs(E, i + je, a[i], b, je, (NL - 2 - (i + je)) / 2 + 1);
+    // O: pairs at odd limbs up to 5, then the low word at limb 7.
+    const int p0 = i + jo, n = p0 <= NL - 3 ? (NL - 3 - p0) / 2 + 1 : 0;
+    const int jl = jo + 2 * n;
+    if (n > 0) {
+      O[p0 - 1] = mad_lo_cc(a[i], b[jo], O[p0 - 1]);
+      O[p0] = madc_hi_cc(a[i], b[jo], O[p0]);
+      FR254_UNROLL
+      for (int t = 1; t < n; t++) {
+        O[p0 - 1 + 2 * t] = madc_lo_cc(a[i], b[jo + 2 * t], O[p0 - 1 + 2 * t]);
+        O[p0 + 2 * t] = madc_hi_cc(a[i], b[jo + 2 * t], O[p0 + 2 * t]);
+      }
+      O[NL - 2] = madc_lo(a[i], b[jl], O[NL - 2]);
+    } else {
+      O[NL - 2] = a[i] * b[jl] + O[NL - 2];
+    }
+  }
+  join_pairs(r, E, O);
+}
+
+// r = x^2, 16 limbs, exact (square_wide): the off-diagonal products once
+// in E and O, joined, doubled, plus the diagonal.
+__device__ __forceinline__ void square_wide_pairs(uint32_t (&r)[2 * NL],
+                                                  const uint32_t (&x)[NL]) {
+  uint32_t E[2 * NL], O[2 * NL - 1];
+  clear(E);
+  clear(O);
+  FR254_UNROLL
+  for (int i = 0; i < NL - 1; i++) {
+    mad_pairs(E, 2 * i + 2, x[i], x, i + 2, (NL - 1 - i) / 2);
+    mad_pairs(O, 2 * i, x[i], x, i + 1, (NL - i) / 2);
+  }
+  join_pairs(r, E, O);
+  // Off-diagonal sum < 2^511: doubling drops nothing.
+  FR254_UNROLL
+  for (int i = 2 * NL - 1; i > 0; i--) r[i] = (r[i] << 1) | (r[i - 1] >> 31);
+  r[0] <<= 1;
+  r[0] = mad_lo_cc(x[0], x[0], r[0]);
+  r[1] = madc_hi_cc(x[0], x[0], r[1]);
+  FR254_UNROLL
+  for (int i = 1; i < NL - 1; i++) {
+    r[2 * i] = madc_lo_cc(x[i], x[i], r[2 * i]);
+    r[2 * i + 1] = madc_hi_cc(x[i], x[i], r[2 * i + 1]);
+  }
+  r[2 * NL - 2] = madc_lo_cc(x[NL - 1], x[NL - 1], r[2 * NL - 2]);
+  r[2 * NL - 1] = madc_hi(x[NL - 1], x[NL - 1], r[2 * NL - 1]);
+}
+
+// a += q c mod 2^256 for one word q: the even limbs of c, then the odd.
+__device__ __forceinline__ void add_word_times(uint32_t (&a)[NL], uint32_t q,
+                                               const uint32_t (&c)[NL]) {
+  a[0] = mad_lo_cc(q, c[0], a[0]);
+  a[1] = madc_hi_cc(q, c[0], a[1]);
+  FR254_UNROLL
+  for (int j = 2; j < NL - 2; j += 2) {
+    a[j] = madc_lo_cc(q, c[j], a[j]);
+    a[j + 1] = madc_hi_cc(q, c[j], a[j + 1]);
+  }
+  a[NL - 2] = madc_lo_cc(q, c[NL - 2], a[NL - 2]);
+  a[NL - 1] = madc_hi(q, c[NL - 2], a[NL - 1]);
+  a[1] = mad_lo_cc(q, c[1], a[1]);
+  a[2] = madc_hi_cc(q, c[1], a[2]);
+  FR254_UNROLL
+  for (int j = 3; j < NL - 1; j += 2) {
+    a[j] = madc_lo_cc(q, c[j], a[j]);
+    a[j + 1] = madc_hi_cc(q, c[j], a[j + 1]);
+  }
+  a[NL - 1] = madc_lo(q, c[NL - 1], a[NL - 1]);
+}
+
+// a mod p for any a < 2^256: the value red gives.  With D = p_7 + 1,
+// floor(a_7 / D) <= floor(a / p) <= floor((a_7 + 1) / p_7), and the two
+// bounds differ by at most one (a_7 < 2^32), so after subtracting
+// q = floor(a_7 / D) times p one conditional subtract remains.  q itself:
+// floor(5 a_7 / 2^32) is floor(a_7 / D) or one below it (5 = floor(2^32 /
+// D)), and one compare settles it; q <= 5.
+__device__ __forceinline__ void red_quotient(uint32_t (&a)[NL]) {
+  const uint32_t pneg[NL] = {FR254_PNEG};
+  const uint32_t p[NL] = {FR254_P};
+  constexpr uint32_t D = 0x30644e73u;
+  uint32_t q = mul_hi(a[NL - 1], 5u);
+  q += a[NL - 1] >= (q + 1) * D ? 1u : 0u;
+  add_word_times(a, q, pneg);
+  cond_sub(a, p);
+}
+
+__device__ __forceinline__ Fe add_wrap_red_quotient(const Fe& a, const Fe& b) {
+  Vec<1> x, y;
+  x.e[0] = a;
+  y.e[0] = b;
+  Fe r = add_wrap(x, y).e[0];
+  red_quotient(r.v);
+  return r;
+}
+
+// reduce_wide of the product p (low limbs first).
+__device__ __forceinline__ Fe reduce_wide_pairs(const uint32_t (&p)[2 * NL]) {
+  const uint32_t k[NL] = {FR254_K};
+  uint32_t hi[NL], m[2 * NL], mh[NL];
+  Fe lo, hc;
+  FR254_UNROLL
+  for (int i = 0; i < NL; i++) {
+    lo.v[i] = p[i];
+    hi[i] = p[NL + i];
+  }
+  mul_wide_pairs(m, hi, k);
+  uint32_t any = 0;
+  FR254_UNROLL
+  for (int i = 0; i < NL; i++) {
+    hc.v[i] = m[i];
+    mh[i] = m[NL + i];
+    any |= mh[i];
+  }
+  if (any != 0) {
+    Fe t;
+    mul_low_pairs(t.v, mh, k);
+    hc = add_wrap_red_quotient(hc, t);
+  }
+  return add_wrap_red_quotient(lo, hc);
+}
+
+// a^5 = ((a^2)^2) * a.
+__device__ __forceinline__ Fe power5_pairs(const Fe& a) {
+  uint32_t p[2 * NL];
+  square_wide_pairs(p, a.v);
+  Fe x = reduce_wide_pairs(p);
+  square_wide_pairs(p, x.v);
+  x = reduce_wide_pairs(p);
+  mul_wide_pairs(p, x.v, a.v);
+  return reduce_wide_pairs(p);
+}
+
+// mul_small_rr(a, c) for one element: lo + high k mod 2^256 (high <= 4),
+// then the reduce.
+__device__ __forceinline__ Fe mul_small_quotient(const Fe& a, uint32_t c) {
+  const uint32_t k[NL] = {FR254_K};
+  uint32_t r[NL + 1];
+  rows_word(r, a.v, c);
+  Fe x;
+  FR254_UNROLL
+  for (int i = 0; i < NL; i++) x.v[i] = r[i];
+  add_word_times(x.v, r[NL], k);
+  red_quotient(x.v);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// Digit I/O: the public format, [.., 16] int64 digits of 16 bits each
+// ---------------------------------------------------------------------------
+
+// One element from 16 int64 digits, read by value: sum d[i] 2^(16 i) mod
+// 2^256, each digit taken as the signed 64-bit value it holds.  Never a
+// bit-pack, so d + 2^16 does not alias d and 2^32 + d does not become d
+// (ROADMAP traps (f) and (i)); where fr.digits_to_limbs is exact (digits in
+// [0, 2^40)) the limbs are the same.  Word w collects the pieces that land
+// in it, each below 2^32 in size:
+//   d[2w] low 32 bits, d[2w - 2] >> 32 (signed)      -- even digits at 32 w
+//   (d[2w + 1] & 0xffff) << 16, bits 16..47 of d[2w - 1], d[2w - 3] >> 48
+//                                                    -- odd digits at 32 w + 16
+// and one signed carry runs from word to word; pieces above word 7 and the
+// last carry are the part at and above 2^256.
+__device__ __forceinline__ Fe load_digits(const int64_t* d) {
+  Fe r;
+  int64_t carry = 0;
+  FR254_UNROLL
+  for (int w = 0; w < NL; w++) {
+    int64_t s = carry + (int64_t)(uint32_t)d[2 * w] +
+                (int64_t)((uint64_t)(d[2 * w + 1] & 0xffff) << 16);
+    if (w >= 1) s += (d[2 * w - 2] >> 32) + (int64_t)(uint32_t)(d[2 * w - 1] >> 16);
+    if (w >= 2) s += d[2 * w - 3] >> 48;
+    r.v[w] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  return r;
+}
+
+// An element as 16 int64 digits below 2^16.
+__device__ __forceinline__ void store_digits(int64_t* d, const Fe& a) {
+  FR254_UNROLL
+  for (int i = 0; i < NL; i++) {
+    d[2 * i] = a.v[i] & 0xffffu;
+    d[2 * i + 1] = a.v[i] >> 16;
+  }
+}
+
 // mul(a, c) for any a < 2^256 and any one-limb c: the general form of
 // mul_small_rr, with the second fold and its mh != 0 select (the per-op
 // check kernel holds it on arbitrary operands).
@@ -498,6 +778,58 @@ __device__ __forceinline__ Vec<1> mul_small(const Vec<1>& a, uint32_t c) {
   const Vec<1> folded = add_wrap_red(hc, t);
   if (mh != 0) hc = folded;
   return add_wrap_red(lo, hc);
+}
+
+// ---------------------------------------------------------------------------
+// The per-op check kernel's operations (poseidon_kernels.cu::fr_op_kernel)
+// ---------------------------------------------------------------------------
+
+enum FrOp {
+  OP_MUL = 0,
+  OP_SQUARE = 1,
+  OP_POWER5 = 2,
+  OP_ADD_WRAP_RED = 3,
+  OP_ADD_RR = 4,
+  OP_MUL_SMALL = 5,
+  OP_REDUCE_WIDE = 6,
+  OP_RED = 7,
+  OP_MUL_SMALL_RR = 8,
+  OP_SUB = 9,
+};
+
+// One operation on x (and y, or the constant c); reduce_wide reduces the
+// product whose low half is x and high half x_hi.
+__device__ __forceinline__ Fe fr_op_apply(int op, const Fe& x, const Fe& x_hi,
+                                          const Fe& y, uint32_t c) {
+  Vec<1> a, b, r;
+  a.e[0] = x;
+  b.e[0] = y;
+  switch (op) {
+    case OP_MUL: r = mul(a, b); break;
+    case OP_SQUARE: r = square(a); break;
+    case OP_POWER5: r = power5(a); break;
+    case OP_ADD_WRAP_RED: r = add_wrap_red(a, b); break;
+    case OP_ADD_RR: r = add_rr(a, b); break;
+    case OP_MUL_SMALL: r = mul_small(a, c); break;
+    case OP_REDUCE_WIDE: {
+      Wide w[1];
+#pragma unroll
+      for (int i = 0; i < NL; i++) {
+        w[0].lo[i] = x.v[i];
+        w[0].hi[i] = x_hi.v[i];
+      }
+      r = reduce_wide(w);
+      break;
+    }
+    case OP_RED: r = red(a); break;
+    case OP_SUB: r = sub(a, b); break;
+    default: {  // OP_MUL_SMALL_RR
+      const uint32_t cs[1] = {c};
+      r = mul_small_rr(a, cs);
+      break;
+    }
+  }
+  return r.e[0];
 }
 
 }  // namespace fr254

@@ -78,12 +78,66 @@ __device__ __forceinline__ void permute(Vec<T>& s) {
   permute_rounds(s);
 }
 
+// ---------------------------------------------------------------------------
+// K4's permutation (permute_full_ilp): permute_rounds' values, operation
+// for operation, laid out for a full wave.  At 65,536 states every thread of
+// the launch is resident at once, about four warps a scheduler.  The form
+// above, with one branch a round on its kind and every routine inlined,
+// compiles to 9,424 SASS instructions (150 KB) and issued 0.44 instructions
+// a clock a scheduler there (PERF.md): its warps waited on instruction fetch
+// and on the ALU pipe.  Here:
+//   - one S-box's code serves every round: a full round runs it three
+//     times, rotating the state, a partial round once (the kernel is about
+//     2,200 instructions);
+//   - the products and reduces are fr254.cuh's K4 forms (limb pairs on the
+//     multiply pipe, the quotient reduce), so the multiply pipe, not the
+//     ALU, carries most of the work;
+//   - the MDS rows keep their sums in order, add_rr(add_rr(m0, m1), m2),
+//     then the round constant.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fe mds_row_quotient(const Vec<T>& s,
+                                               const uint32_t (&coef)[T]) {
+  Vec<1> a, b, c;
+  a.e[0] = mul_small_quotient(s.e[0], coef[0]);
+  b.e[0] = mul_small_quotient(s.e[1], coef[1]);
+  c.e[0] = mul_small_quotient(s.e[2], coef[2]);
+  return add_rr(add_rr(a, b), c).e[0];
+}
+
+__device__ __forceinline__ void permute_rounds_ilp(Vec<T>& s) {
+  const uint32_t mds[T * T] = {7, 23, 8, 26, 5, 4, 15, 20, 9};
+#pragma unroll 1
+  for (int r = 0; r < ROUNDS; r++) {
+    const bool full = r < HALF_FULL || r >= ROUNDS - HALF_FULL;
+#pragma unroll 1
+    for (int e = 0; e < (full ? T : 1); e++) {
+      const Fe x = power5_pairs(s.e[0]);
+      if (full) {
+        s.e[0] = s.e[1];
+        s.e[1] = s.e[2];
+        s.e[2] = x;
+      } else {
+        s.e[0] = x;
+      }
+    }
+    Vec<T> ns;
+    FR254_UNROLL
+    for (int q = 0; q < T; q++) {
+      const uint32_t coef[T] = {mds[T * q], mds[T * q + 1], mds[T * q + 2]};
+      ns.e[q] = mds_row_quotient(s, coef);
+    }
+    if (r + 1 < ROUNDS) ns = add_rr(ns, round_constants(r + 1));
+    s = ns;
+  }
+}
+
 // The permutation on a state of any 256-bit values (the reference's
 // batch_permutation): round 0 adds with the full wrap at 2^256 and the
 // 4p/2p/p reduce, the same op the sponge's absorb uses.
-__device__ __forceinline__ void permute_full(Vec<T>& s) {
+__device__ __forceinline__ void permute_full_ilp(Vec<T>& s) {
   s = add_wrap_red(s, round_constants(0));
-  permute_rounds(s);
+  permute_rounds_ilp(s);
 }
 
 __device__ __forceinline__ Vec<T> initial_state(uint32_t ds) {

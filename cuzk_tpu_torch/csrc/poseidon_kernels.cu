@@ -28,7 +28,8 @@
 //     run in parallel, with no carry between lanes; 1.4-1.6x shorter per
 //     state than G = 1 on an H100.
 // The wrapper picks G from the batch and the resident threads
-// (ops/poseidon_cuda.py::choose_lanes).  The raw permutation keeps G = 1.
+// (ops/poseidon_cuda.py::choose_lanes).  The raw permutation keeps G = 1
+// and has a body of its own (permute_full_ilp), laid out for a full wave.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -115,8 +116,15 @@ __global__ void __launch_bounds__(VERIFY_THREADS, min_blocks(G))
   if (warp_lane() % W == 0 && owns_item<W>(k)) ok[t] = same ? 1 : 0;
 }
 
-// K4: the raw batched permutation.  in, out [B, 3, 8]: states of any
-// 256-bit values, so round 0 adds with the full wrap (permute_full).
+// K4: the raw batched permutation on states of any 256-bit values, so round
+// 0 adds with the full wrap.  Two forms of one body (poseidon.cuh::
+// permute_full_ilp, K4's own design): on limbs, in, out [B, 3, 8]; and on
+// the public digits, in, out [B, 3, 16] int64, read by value and written
+// below 2^16 (fr254.cuh::load_digits / store_digits), so that the wrapper
+// converts nothing.  What bounds it: the multiply pipe at 88,192 multiply
+// results a state (the rest of its instructions go to the ALU beside it);
+// its bytes (32 or 64 per element each way) are below 1% of that.  One
+// thread a state: at 65,536 states the launch is one wave.
 __global__ void __launch_bounds__(PERMUTATION_THREADS)
     permutation_kernel(const uint32_t* __restrict__ in,
                        uint32_t* __restrict__ out, int64_t batch) {
@@ -125,80 +133,98 @@ __global__ void __launch_bounds__(PERMUTATION_THREADS)
   Vec<T> s;
 #pragma unroll
   for (int i = 0; i < T; i++) s.e[i] = load(in + (b * T + i) * NL);
-  permute_full(s);
+  permute_full_ilp(s);
 #pragma unroll
   for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s.e[i]);
 }
 
-// Per-op check kernel: exposes the field library on limb tensors so that
-// each operation can be held against its plain PyTorch version.
-enum FrOp {
-  OP_MUL = 0,
-  OP_SQUARE = 1,
-  OP_POWER5 = 2,
-  OP_ADD_WRAP_RED = 3,
-  OP_ADD_RR = 4,
-  OP_MUL_SMALL = 5,
-  OP_REDUCE_WIDE = 6,
-  OP_RED = 7,
-  OP_MUL_SMALL_RR = 8,
-  OP_SUB = 9,
-};
+__global__ void __launch_bounds__(PERMUTATION_THREADS)
+    permutation_digits_kernel(const int64_t* __restrict__ in,
+                              int64_t* __restrict__ out, int64_t batch) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  Vec<T> s;
+#pragma unroll
+  for (int i = 0; i < T; i++) s.e[i] = load_digits(in + (b * T + i) * 2 * NL);
+  permute_full_ilp(s);
+#pragma unroll
+  for (int i = 0; i < T; i++) store_digits(out + (b * T + i) * 2 * NL, s.e[i]);
+}
 
+// Per-op check kernel (ops fr254.cuh::FrOp): exposes the field library, one
+// operation per element, so that each can be held against its plain
+// PyTorch version; it is also the device half of field/batch.py's
+// BatchFieldArithmetic.
+// On limbs: a [n, 8] ([n, 16], low half first, for reduce_wide), b [n, 8].
 __global__ void __launch_bounds__(FR_OP_THREADS)
     fr_op_kernel(int op, const uint32_t* __restrict__ a,
                  const uint32_t* __restrict__ b, uint32_t c,
                  uint32_t* __restrict__ out, int64_t n) {
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  Vec<1> x, y, r;
-  x.e[0] = load(a + e * NL);
-  switch (op) {
-    case OP_MUL:
-      y.e[0] = load(b + e * NL);
-      r = mul(x, y);
-      break;
-    case OP_SQUARE:
-      r = square(x);
-      break;
-    case OP_POWER5:
-      r = power5(x);
-      break;
-    case OP_ADD_WRAP_RED:
-      y.e[0] = load(b + e * NL);
-      r = add_wrap_red(x, y);
-      break;
-    case OP_ADD_RR:
-      y.e[0] = load(b + e * NL);
-      r = add_rr(x, y);
-      break;
-    case OP_MUL_SMALL:
-      r = mul_small(x, c);
-      break;
-    case OP_REDUCE_WIDE: {
-      Wide w[1];
-#pragma unroll
-      for (int i = 0; i < NL; i++) {
-        w[0].lo[i] = a[e * 2 * NL + i];
-        w[0].hi[i] = a[e * 2 * NL + NL + i];
-      }
-      r = reduce_wide(w);
-      break;
-    }
-    case OP_RED:
-      r = red(x);
-      break;
-    case OP_SUB:
-      y.e[0] = load(b + e * NL);
-      r = sub(x, y);
-      break;
-    default: {  // OP_MUL_SMALL_RR
-      const uint32_t cs[1] = {c};
-      r = mul_small_rr(x, cs);
-      break;
-    }
+  const bool wide = op == OP_REDUCE_WIDE;
+  const uint32_t* x = a + e * (wide ? 2 : 1) * NL;
+  const Fe r = fr_op_apply(op, load(x), wide ? load(x + NL) : zero(),
+                           load(b + e * NL), c);
+  store(out + e * NL, r);
+}
+
+// On the public digits: a [n, W] int64 (W = 32 for reduce_wide, two
+// elements a row, else 16), b [n, 16], out [n, 16].  What bounds it: its
+// bytes, 128 a digit row, against a few hundred integer operations an
+// element.  So a warp moves its 32 rows as consecutive 16-byte chunks
+// (coalesced) through shared memory, each thread then reads its own row by
+// value there (rows padded by one digit, so the 32 lanes hit other banks)
+// and computes one element, and the results leave the same way.
+constexpr int WARP_ROWS = 32;
+
+template <int W>
+__device__ __forceinline__ void stage_rows(int64_t* sh, const int64_t* g,
+                                           int rows, uint32_t lane) {
+  const longlong2* src = reinterpret_cast<const longlong2*>(g);
+  for (int c = lane; c < rows * W / 2; c += WARP_ROWS) {
+    const longlong2 v = src[c];
+    const int row = 2 * c / W, col = 2 * c % W;
+    sh[row * (W + 1) + col] = v.x;
+    sh[row * (W + 1) + col + 1] = v.y;
   }
-  store(out + e * NL, r.e[0]);
+}
+
+template <int W>
+__global__ void __launch_bounds__(FR_OP_THREADS)
+    fr_op_digits_kernel(int op, const int64_t* __restrict__ a,
+                        const int64_t* __restrict__ b, uint32_t c,
+                        int64_t* __restrict__ out, int64_t n) {
+  constexpr int ND = 2 * NL;
+  constexpr int WARPS = FR_OP_THREADS / WARP_ROWS;
+  __shared__ int64_t sh_a[WARPS][WARP_ROWS * (W + 1)];
+  __shared__ int64_t sh_b[WARPS][W == ND ? WARP_ROWS * (ND + 1) : 1];
+  const uint32_t lane = warp_lane(), warp = threadIdx.x / WARP_ROWS;
+  const int64_t row0 = ((int64_t)blockIdx.x * blockDim.x) + warp * WARP_ROWS;
+  if (row0 >= n) return;
+  const int rows = n - row0 < WARP_ROWS ? (int)(n - row0) : WARP_ROWS;
+  const bool binary = op == OP_MUL || op == OP_ADD_WRAP_RED ||
+                      op == OP_ADD_RR || op == OP_SUB;
+  int64_t* sa = sh_a[warp];
+  int64_t* sb = sh_b[warp];
+  stage_rows<W>(sa, a + row0 * W, rows, lane);
+  if (W == ND && binary) stage_rows<ND>(sb, b + row0 * ND, rows, lane);
+  __syncwarp();
+  Fe r;
+  if ((int)lane < rows) {
+    const int64_t* x = sa + lane * (W + 1);
+    r = fr_op_apply(op, load_digits(x), W == 2 * ND ? load_digits(x + ND) : zero(),
+                    W == ND && binary ? load_digits(sb + lane * (ND + 1)) : zero(),
+                    c);
+  }
+  __syncwarp();
+  if ((int)lane < rows) store_digits(sa + lane * (ND + 1), r);
+  __syncwarp();
+  longlong2* dst = reinterpret_cast<longlong2*>(out + row0 * ND);
+  for (int q = lane; q < rows * ND / 2; q += WARP_ROWS) {
+    const int row = 2 * q / ND, col = 2 * q % ND;
+    dst[q] = make_longlong2(sa[row * (ND + 1) + col], sa[row * (ND + 1) + col + 1]);
+  }
 }
 
 unsigned int blocks_for(int64_t n, int threads) {
@@ -278,6 +304,14 @@ int cuzk_permutation(const uint32_t* in, uint32_t* out, int64_t batch,
   return (int)cudaGetLastError();
 }
 
+int cuzk_permutation_digits(const int64_t* in, int64_t* out, int64_t batch,
+                            void* stream) {
+  permutation_digits_kernel<<<blocks_for(batch, PERMUTATION_THREADS),
+                              PERMUTATION_THREADS, 0, (cudaStream_t)stream>>>(
+      in, out, batch);
+  return (int)cudaGetLastError();
+}
+
 // States (rows or proofs) that one SM holds resident for the sponge
 // (kernel 0) or the verify kernel (kernel 1) at G lanes, from the
 // occupancy API.
@@ -303,6 +337,21 @@ int cuzk_fr_op(int op, const uint32_t* a, const uint32_t* b, uint32_t c,
                uint32_t* out, int64_t n, void* stream) {
   fr_op_kernel<<<blocks_for(n, FR_OP_THREADS), FR_OP_THREADS, 0,
                  (cudaStream_t)stream>>>(op, a, b, c, out, n);
+  return (int)cudaGetLastError();
+}
+
+// Digit rows must start on 16 bytes (the wrapper's check).
+int cuzk_fr_op_digits(int op, const int64_t* a, const int64_t* b, uint32_t c,
+                      int64_t* out, int64_t n, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  constexpr int ND = 2 * NL;
+  if (op == OP_REDUCE_WIDE) {
+    fr_op_digits_kernel<2 * ND><<<blocks_for(n, FR_OP_THREADS), FR_OP_THREADS, 0, s>>>(
+        op, a, b, c, out, n);
+  } else {
+    fr_op_digits_kernel<ND><<<blocks_for(n, FR_OP_THREADS), FR_OP_THREADS, 0, s>>>(
+        op, a, b, c, out, n);
+  }
   return (int)cudaGetLastError();
 }
 

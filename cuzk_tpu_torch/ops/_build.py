@@ -112,7 +112,9 @@ class Kernels:
             "cuzk_permutation": [p, p, i64, p],
             "cuzk_resident_states": [i32, i32, ctypes.POINTER(ctypes.c_int)],
             "cuzk_verify": [p, p, p, p, p, i64, i32, i32, i32, p],
+            "cuzk_permutation_digits": [p, p, i64, p],
             "cuzk_fr_op": [i32, p, p, u32, p, i64, p],
+            "cuzk_fr_op_digits": [i32, p, p, u32, p, i64, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -10,8 +10,10 @@ does, and runs where its tensors lie:
 - torch tensors on the CPU take the plain PyTorch version
   (``cuzk_tpu_torch.poseidon``): the CPU runs only when asked for;
 - on any other device it builds the kernels (at the first call), checks
-  device, dtype, shape and contiguity, converts digits to limbs, launches
-  on PyTorch's current stream and raises on a launch error.  There is no
+  device, dtype, shape and contiguity, launches on PyTorch's current
+  stream and raises on a launch error.  K1 and K3 take limbs, so their
+  entry points convert digits to limbs first; K4 and the per-op check
+  kernel read and write the digits themselves.  There is no
   fallback: without a Hopper card, or when the build fails, it raises.
 
 K1 and K3 run G lanes of a warp per state: one thread per state (G = 1),
@@ -27,7 +29,9 @@ so none of it is here.
 
 The ``*_limbs`` launchers take 8 x u32 limb tensors on the card and run on
 no other device; :mod:`cuzk_tpu_torch.merkle` calls them for the tree
-build (K1) and proof verification (K3), after its own device dispatch.
+build (K1) and proof verification (K3), after its own device dispatch, and
+``permutation_limbs`` and ``fr_op_limbs`` serve limb-resident callers and
+time the arithmetic alone.
 
 The ``*_packed`` entry points take ``fr.pack16`` words, two digits per u32
 word: on the card those words are K1's limbs as they stand, so they go to
@@ -341,19 +345,33 @@ def permutation_limbs(states: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _digit_rows(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x`` (int64 digits on the card) contiguous in ``shape``, copied when
+    its rows would not start on 16 bytes: the digit-form kernels move rows
+    in 16-byte chunks."""
+    x = x.reshape(shape).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def permutation_cuda(states) -> torch.Tensor:
     """Raw batched permutation on ``[..., 3, 16]`` digit states of any
     256-bit values (digits read by value): the plain permutation on the
-    CPU, K4 elsewhere."""
+    CPU, elsewhere K4 on the digits themselves (the kernel reads each row by
+    value and writes digits below 2^16; no conversion around it)."""
     states = _on_device(states)
     if states.device.type == "cpu":
         return poseidon.permutation(states)
-    _build.kernels()
+    kernels = _build.kernels()
     shape = states.shape
     if shape[-2:] != (poseidon.T, ND):
         raise ValidationError(f"states must be [..., 3, 16] digits, got {shape}")
-    limbs = fr.digits_to_limbs(states.reshape(-1, poseidon.T, ND)).contiguous()
-    return fr.limbs_to_digits(permutation_limbs(limbs)).reshape(shape)
+    x = _digit_rows(states, (-1, poseidon.T, ND))
+    out = torch.empty_like(x)
+    if x.shape[0]:
+        _launch(kernels, kernels.lib.cuzk_permutation_digits, x.device,
+                x.data_ptr(), out.data_ptr(), x.shape[0])
+        launch_counts["permutation"] += 1
+    return out.reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -430,23 +448,36 @@ def fr_op_limbs(op: str, a: torch.Tensor, b: Optional[torch.Tensor] = None,
 
 def fr_op_cuda(op: str, a, b=None, c: int = 0) -> torch.Tensor:
     """One field operation of the device library on ``[n, 16]`` digits
-    (``reduce_wide`` takes ``[n, 32]``): ``b`` for the binary ops, the
-    constant ``c`` for ``mul_small`` and ``mul_small_rr`` (whose operand
-    must be reduced, c <= 26).  The plain ``fr`` op on the CPU, the check
-    kernel (:func:`fr_op_limbs`) elsewhere."""
+    (``reduce_wide`` takes ``[n, 32]``, two elements a row): ``b`` for the
+    binary ops, the constant ``c`` for ``mul_small`` and ``mul_small_rr``
+    (whose operand must be reduced, c <= 26).  The plain ``fr`` op on the
+    CPU; elsewhere the check kernel on the digits themselves (each element
+    read by value, as ``fr.digits_to_limbs`` reads it, and written below
+    2^16; no conversion around it)."""
     plain = FR_OPS[op][1]
     a = _on_device(a)
     if a.device.type == "cpu":
         if op in ("mul_small", "mul_small_rr"):
             return plain(a, c)
         return plain(a) if b is None else plain(a, b)
-    _build.kernels()
-    n = a.shape[0]
+    kernels = _build.kernels()
     width = 2 * ND if op == "reduce_wide" else ND
     if a.dim() != 2 or a.shape[1] != width:
         raise ValidationError(f"{op} takes [n, {width}] digits, got {a.shape}")
-    al = fr.digits_to_limbs(a.reshape(n, -1, ND)).reshape(n, -1).contiguous()
-    bl = None
+    if (b is None) == (op in _BINARY_FR_OPS):
+        raise ValidationError(
+            f"{op} takes {'two operands' if op in _BINARY_FR_OPS else 'one'}")
+    n = a.shape[0]
+    a = _digit_rows(a, (n, width))
     if b is not None:
-        bl = fr.digits_to_limbs(fr.as_digits(b, device=a.device)).contiguous()
-    return fr.limbs_to_digits(fr_op_limbs(op, al, bl, c))
+        b = fr.as_digits(b, device=a.device)
+        if tuple(b.shape) != (n, ND):
+            raise ValidationError(f"{op}: b must be [{n}, {ND}] digits beside a")
+        b = _digit_rows(b, (n, ND))
+    out = torch.empty((n, ND), dtype=torch.int64, device=a.device)
+    if n:
+        _launch(kernels, kernels.lib.cuzk_fr_op_digits, a.device,
+                FR_OPS[op][0], a.data_ptr(), (a if b is None else b).data_ptr(),
+                c, out.data_ptr(), n)
+        launch_counts["fr_op"] += 1
+    return out

@@ -506,3 +506,102 @@ def test_int_helpers_on_the_card(cuda_device):
     assert poseidon.hash_multiple_int(range(1, 10)) == \
         port_oracle.hash_multiple(list(range(1, 10)))
     assert poseidon.hash_multiple_int([]) == 0
+
+
+# ---------------------------------------------------------------------------
+# K4's redesign and the digit forms of K4 and the per-op check kernel
+# ---------------------------------------------------------------------------
+
+def _edge_and_odd_states(rng, device):
+    edges = [0, 1, oracle.P - 1, oracle.P, (1 << 256) - 1]
+    combos = [(a, b, c) for a in edges for b in edges for c in edges]
+    edge_states = fr.ints_to_array(
+        [v for c in combos for v in c], device=device).reshape(len(combos), 3, 16)
+    odd = digits(rng, (3, 3), device)
+    odd[0, 1, 5] += 1 << 16
+    odd[1, 0, 0] = 0xFFFFFFFF
+    odd[2, 2, 15] = (1 << 40) - 1
+    return torch.cat([edge_states, odd])
+
+
+def test_permutation_digit_form_equals_limb_form_and_plain(cuda_device):
+    """K4 on digits (permutation_cuda) and on limbs (permutation_limbs) on
+    the edge rows and non-canonical digits, against the plain permutation."""
+    rng = np.random.default_rng(401)
+    states = torch.cat([digits(rng, (517, 3), cuda_device),
+                        _edge_and_odd_states(rng, cuda_device)])
+    want = poseidon.permutation(states)
+    got = poseidon_cuda.permutation_cuda(states)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    lim = poseidon_cuda.permutation_limbs(fr.digits_to_limbs(states).contiguous())
+    assert torch.equal(fr.limbs_to_digits(lim), want)
+    assert torch.equal(poseidon_cuda.permutation_cuda(states[1:]), want[1:])  # an offset view
+
+
+@pytest.mark.parametrize("batch", [4096, 16384, 65536, 262144, 1048576])
+def test_permutation_kernel_exact_at_the_sweep_shapes(batch, cuda_device):
+    """K4 at each shape of chip_smoke.py's sweep, both forms, held against
+    the plain permutation on 512 rows spread over the batch."""
+    rng = np.random.default_rng(batch)
+    states = digits(rng, (batch, 3), cuda_device)
+    rows = torch.as_tensor(np.linspace(0, batch - 1, 512).astype(np.int64),
+                           device=cuda_device)
+    want = poseidon.permutation(states[rows])
+    got = poseidon_cuda.permutation_cuda(states)
+    assert torch.equal(got[rows], want)
+    lim = poseidon_cuda.permutation_limbs(fr.digits_to_limbs(states).contiguous())
+    assert torch.equal(fr.limbs_to_digits(lim[rows]), want)
+
+
+@pytest.mark.parametrize("op", sorted(poseidon_cuda.FR_OPS))
+def test_fr_op_digit_form_equals_limb_form(op, cuda_device):
+    """The check kernel on digits (fr_op_cuda) and on limbs (fr_op_limbs)
+    on random, edge and non-canonical rows (d + 2^16, 2^40 - 1, read by
+    value), against the plain op on the canonical digits of the same
+    values (fr.carry)."""
+    rng = np.random.default_rng(402)
+    edges = fr.ints_to_array([0, 1, oracle.P - 1, oracle.P, (1 << 256) - 1],
+                             device=cuda_device)
+    a = torch.cat([digits(rng, (1000,), cuda_device), edges])
+    b = torch.cat([digits(rng, (1000,), cuda_device), edges.flip(0)])
+    a[0, 3] += 1 << 16
+    a[1, 15] = (1 << 40) - 1
+    b[2, 0] += 1 << 16
+    if op in ("add_rr", "mul_small_rr"):
+        a, b = fr.red(fr.carry(a)), fr.red(fr.carry(b))
+    c = 26 if op.startswith("mul_small") else 0
+    plain = poseidon_cuda.FR_OPS[op][1]
+    ca, cb = fr.carry(a), fr.carry(b)
+    if op == "reduce_wide":
+        x = (torch.cat([a, b], dim=1),)
+        want = plain(torch.cat([ca, cb], dim=1))
+        lim = (torch.cat([fr.digits_to_limbs(a), fr.digits_to_limbs(b)], 1),)
+    elif op in ("mul_small", "mul_small_rr"):
+        x, want = (a,), plain(ca, c)
+        lim = (fr.digits_to_limbs(a),)
+    elif op in ("mul", "add_wrap_red", "add_rr", "sub"):
+        x, want = (a, b), plain(ca, cb)
+        lim = (fr.digits_to_limbs(a), fr.digits_to_limbs(b))
+    else:
+        x, want = (a,), plain(ca)
+        lim = (fr.digits_to_limbs(a),)
+    got = poseidon_cuda.fr_op_cuda(op, *x, c=c)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    got_limbs = poseidon_cuda.fr_op_limbs(op, *(t.contiguous() for t in lim), c=c)
+    assert torch.equal(fr.limbs_to_digits(got_limbs), want)
+
+
+def test_digit_forms_take_rows_off_16_bytes(cuda_device):
+    """A contiguous digit view whose rows start 8 bytes off a 16-byte
+    boundary: the wrappers copy it before the 16-byte row moves."""
+    rng = np.random.default_rng(403)
+    a, b = digits(rng, (33,), cuda_device), digits(rng, (33,), cuda_device)
+    flat = torch.empty(33 * 16 + 1, dtype=torch.int64, device=cuda_device)
+    off = flat[1:].view(33, 16)
+    off.copy_(a)
+    assert off.data_ptr() % 16 == 8
+    assert torch.equal(poseidon_cuda.fr_op_cuda("sub", off, b), fr.sub(a, b))
+    st = torch.empty(11 * 48 + 1, dtype=torch.int64, device=cuda_device)[1:]
+    st = st.view(11, 3, 16)
+    st.copy_(digits(rng, (11, 3), cuda_device))
+    assert torch.equal(poseidon_cuda.permutation_cuda(st), poseidon.permutation(st))

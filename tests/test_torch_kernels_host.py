@@ -14,6 +14,7 @@ Tolerance: none, every comparison is integer-exact.
 """
 
 import ctypes
+import itertools
 import shutil
 import subprocess
 
@@ -67,7 +68,21 @@ void h_verify(const int32_t* pos, const uint32_t* sib, const uint32_t* leaf, con
 }
 void h_perm(const uint32_t* in, uint32_t* out, int64_t batch) {
   for (int64_t b = 0; b < batch; b++) { Vec<T> s; for (int i = 0; i < T; i++) s.e[i] = load(in + (b * T + i) * NL);
-    permute_full(s); for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s.e[i]); } }
+    permute_full_ilp(s); for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s.e[i]); } }
+void h_perm_k1k3(const uint32_t* in, uint32_t* out, int64_t batch) {
+  for (int64_t b = 0; b < batch; b++) { Vec<T> s; for (int i = 0; i < T; i++) s.e[i] = load(in + (b * T + i) * NL);
+    s = add_wrap_red(s, round_constants(0)); permute_rounds(s);
+    for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s.e[i]); } }
+void h_perm_digits(const int64_t* in, int64_t* out, int64_t batch) {
+  for (int64_t b = 0; b < batch; b++) { Vec<T> s; for (int i = 0; i < T; i++) s.e[i] = load_digits(in + (b * T + i) * 16);
+    permute_full_ilp(s); for (int i = 0; i < T; i++) store_digits(out + (b * T + i) * 16, s.e[i]); } }
+void h_load_digits(const int64_t* d, uint32_t* out, int64_t n) { for (int64_t e = 0; e < n; e++) store(out + e * NL, load_digits(d + e * 16)); }
+void h_store_digits(const uint32_t* l, int64_t* d, int64_t n) { for (int64_t e = 0; e < n; e++) store_digits(d + e * 16, load(l + e * NL)); }
+void h_red_quotient(const uint32_t* in, uint32_t* out, int64_t n) { for (int64_t e = 0; e < n; e++) { Fe a = load(in + e * NL); red_quotient(a.v); store(out + e * NL, a); } }
+void h_fr_op_digits(int op, const int64_t* a, const int64_t* b, uint32_t c, int64_t* out, int64_t n) {
+  const int w = op == OP_REDUCE_WIDE ? 32 : 16;
+  for (int64_t e = 0; e < n; e++) { const int64_t* x = a + e * w;
+    store_digits(out + e * 16, fr_op_apply(op, load_digits(x), w == 32 ? load_digits(x + 16) : zero(), load_digits(b + e * 16), c)); } }
 void h_fr_op(int op, const uint32_t* a, const uint32_t* b, uint32_t c, uint32_t* out, int64_t n) {
   for (int64_t e = 0; e < n; e++) { Vec<1> x, y, r; x.e[0] = load(a + e * NL);
     if (op == 0) { y.e[0] = load(b + e * NL); r = mul(x, y); }
@@ -109,6 +124,12 @@ def host_kernels(tmp_path_factory):
     h.h_verify.argtypes = [p, p, p, p, p, i64, i32, i32, i32]
     h.h_perm.argtypes = [p, p, i64]
     h.h_fr_op.argtypes = [i32, p, p, u32, p, i64]
+    h.h_perm_k1k3.argtypes = [p, p, i64]
+    h.h_perm_digits.argtypes = [p, p, i64]
+    h.h_load_digits.argtypes = [p, p, i64]
+    h.h_store_digits.argtypes = [p, p, i64]
+    h.h_red_quotient.argtypes = [p, p, i64]
+    h.h_fr_op_digits.argtypes = [i32, p, p, u32, p, i64]
     rc = np.ascontiguousarray(poseidon.RC_LIMBS, dtype=np.uint32)
     h.h_set_rc(rc.ctypes.data)
     return h
@@ -223,3 +244,156 @@ def test_sub_body_on_every_edge_pair(host_kernels):
     got = digits_of(out)
     assert torch.equal(got, fr.sub(a, b))
     assert fr.array_to_ints(got) == [oracle.sub(x, y) for x, y in pairs]
+
+
+# ---------------------------------------------------------------------------
+# K4's own body (permute_full_ilp) and the digit I/O of K4 and fr_op
+# ---------------------------------------------------------------------------
+
+def edge_states():
+    """Every combination of 0, 1, p - 1, p and 2^256 - 1 in the three lanes
+    (125 states; canonical digits)."""
+    vals = [0, 1, constants.P - 1, constants.P, (1 << 256) - 1]
+    combos = list(itertools.product(vals, repeat=3))
+    return fr.ints_to_array([v for c in combos for v in c]).reshape(-1, 3, 16)
+
+
+def run_k4(host_kernels, st, form):
+    """K4's body on ``[B, 3, 16]`` digits, through its limb form (the digits
+    converted by ``fr.digits_to_limbs``) or its digit form (the body reads
+    and writes the digits itself)."""
+    n = st.shape[0]
+    if form == "limbs":
+        x = limbs(st)
+        out = np.zeros_like(x)
+        host_kernels.h_perm(x.ctypes.data, out.ctypes.data, n)
+        return digits_of(out)
+    x = np.ascontiguousarray(st.numpy().astype(np.int64))
+    out = np.zeros_like(x)
+    host_kernels.h_perm_digits(x.ctypes.data, out.ctypes.data, n)
+    assert out.min() >= 0 and out.max() < 1 << 16
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("form", ["limbs", "digits"])
+def test_k4_body_against_plain_jax_and_oracle(form, host_kernels):
+    """K4's body on the edge rows, a digit d + 2^16 and a digit
+    0xFFFFFFFF (read by value), against the plain permutation and the
+    oracle; against the JAX package on every row whose digits are below
+    2^32 - 2^16 (ROADMAP trap (h))."""
+    from cuzk_tpu import oracle
+    from cuzk_tpu import poseidon as jpos
+
+    rng = np.random.default_rng(71)
+    odd = rnd(rng, (3, 3))
+    odd[0, 1, 5] += 1 << 16
+    odd[1, 0, 0] = 0xFFFFFFFF
+    st = torch.cat([edge_states(), rnd(rng, (4, 3)), odd])
+    got = run_k4(host_kernels, st, form)
+    assert torch.equal(got, poseidon.permutation(st))
+    for row, out in zip(st.tolist(), got.tolist()):
+        want = oracle.permutation([fr.digits_to_int(d) % (1 << 256) for d in row])
+        assert [fr.digits_to_int(d) for d in out] == want
+    below = (st < (1 << 32) - (1 << 16)).flatten(1).all(dim=1)
+    assert int(below.sum()) == st.shape[0] - 1
+    jax_out = np.array(jpos.permutation(st[below].numpy().astype(np.uint32)))
+    assert torch.equal(got[below], torch.from_numpy(jax_out.astype(np.int64)))
+
+
+def test_k4_body_equals_the_k1_k3_rounds(host_kernels):
+    """permute_full_ilp (K4's body) and permute_rounds (K1/K3's) after the
+    same round-0 add, on random states of any 256-bit value: the same
+    bits."""
+    rng = np.random.default_rng(72)
+    st = rnd(rng, (16, 3))
+    x = limbs(st)
+    out_k1k3, out_k4 = np.zeros_like(x), np.zeros_like(x)
+    host_kernels.h_perm_k1k3(x.ctypes.data, out_k1k3.ctypes.data, 16)
+    host_kernels.h_perm(x.ctypes.data, out_k4.ctypes.data, 16)
+    assert np.array_equal(out_k1k3, out_k4)
+
+
+def test_digit_read_and_write_against_fr(host_kernels):
+    """load_digits against fr.digits_to_limbs on digits up to 2^40 - 1 (the
+    range fr.carry is exact in) and against the value mod 2^256 on any int64
+    digits, negative ones included; store_digits against
+    fr.limbs_to_digits."""
+    rng = np.random.default_rng(73)
+    d = rng.integers(0, 1 << 40, (64, 16), dtype=np.int64)
+    d[0] = (1 << 40) - 1
+    d[1] = rng.integers(0, 1 << 16, 16) + (1 << 16)  # d + 2^16
+    d[2, 0] = (1 << 32) + 5  # 2^32 + d must not become d
+    got = np.zeros((64, 8), np.uint32)
+    host_kernels.h_load_digits(d.ctypes.data, got.ctypes.data, 64)
+    assert np.array_equal(got, limbs(torch.as_tensor(d)))
+    wild = rng.integers(-(1 << 63), (1 << 63) - 1, (64, 16), dtype=np.int64)
+    got = np.zeros((64, 8), np.uint32)
+    host_kernels.h_load_digits(wild.ctypes.data, got.ctypes.data, 64)
+    assert [sum(int(v) << (32 * i) for i, v in enumerate(r)) for r in got] == [
+        sum(int(v) << (16 * i) for i, v in enumerate(r)) % (1 << 256)
+        for r in wild]
+    back = np.zeros((64, 16), np.int64)
+    host_kernels.h_store_digits(got.ctypes.data, back.ctypes.data, 64)
+    assert torch.equal(torch.from_numpy(back),
+                       fr.limbs_to_digits(torch.from_numpy(got.view(np.int32))))
+
+
+def test_quotient_reduce_at_its_boundaries(host_kernels):
+    """red_quotient (K4's reduce of any a < 2^256) against a mod p: a near
+    every multiple of p up to 5p, a top limb at and around every multiple
+    of p_7 + 1, 2^256 - 1 and random values."""
+    rng = np.random.default_rng(74)
+    p = constants.P
+    d = (p >> 224) + 1
+    vals = [m * p + e for m in range(6) for e in range(-3, 4) if 0 <= m * p + e]
+    for m in range(7):
+        for e in (-1, 0, 1):
+            top = m * d + e
+            if 0 <= top < 1 << 32:
+                vals += [top << 224, (top << 224) | ((1 << 224) - 1)]
+                vals += [(top << 224) | int(v) for v in
+                         rng.integers(0, 1 << 62, 4) << 150]
+    vals += [(1 << 256) - 1] + [int.from_bytes(rng.bytes(32), "little")
+                                for _ in range(512)]
+    vals = [v for v in vals if v < 1 << 256]
+    a = limbs(fr.ints_to_array(vals))
+    out = np.zeros_like(a)
+    host_kernels.h_red_quotient(a.ctypes.data, out.ctypes.data, len(vals))
+    assert fr.array_to_ints(digits_of(out)) == [v % p for v in vals]
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_field_op_digit_form(op, host_kernels):
+    """The check kernel's digit form (each element read by value, written
+    below 2^16) against the plain fr op, on random, edge and
+    non-canonical rows (d + 2^16, 2^40 - 1); the plain op reads those
+    through fr.carry, the canonical digits of the same value."""
+    rng = np.random.default_rng(80 + OPS[op])
+    edges = fr.ints_to_array([0, 1, constants.P - 1, constants.P,
+                              (1 << 256) - 1])
+    a = torch.cat([rnd(rng, (6,)), edges])
+    b = torch.cat([rnd(rng, (6,)), edges.flip(0)])
+    a[0, 3] += 1 << 16
+    a[1, 15] = (1 << 40) - 1
+    b[2, 0] += 1 << 16
+    if op in ("add_rr", "mul_small_rr"):  # reduced operands
+        a, b = fr.red(fr.carry(a)), fr.red(fr.carry(b))
+    c = {"mul_small": 65535, "mul_small_rr": 26}.get(op, 0)
+    x = torch.cat([a, b], dim=1) if op == "reduce_wide" else a
+    ca, cb = fr.carry(a), fr.carry(b)
+    plain = {
+        "mul": lambda: fr.mul(ca, cb), "square": lambda: fr.square(ca),
+        "power5": lambda: fr.power5(ca), "add_wrap_red": lambda: fr.add(ca, cb),
+        "add_rr": lambda: fr.add_rr(ca, cb), "red": lambda: fr.red(ca),
+        "mul_small": lambda: fr.mul_small(ca, c),
+        "mul_small_rr": lambda: fr.mul_small(ca, c),
+        "reduce_wide": lambda: fr.reduce_wide(torch.cat([ca, cb], dim=1)),
+        "sub": lambda: fr.sub(a, b),
+    }[op]()
+    xs = np.ascontiguousarray(x.numpy().astype(np.int64))
+    ys = np.ascontiguousarray(b.numpy().astype(np.int64))
+    out = np.zeros((a.shape[0], 16), np.int64)
+    host_kernels.h_fr_op_digits(OPS[op], xs.ctypes.data, ys.ctypes.data, c,
+                                out.ctypes.data, a.shape[0])
+    assert out.min() >= 0 and out.max() < 1 << 16
+    assert torch.equal(torch.from_numpy(out), plain)
