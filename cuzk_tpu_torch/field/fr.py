@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from cuzk_tpu_torch import constants
+from cuzk_tpu_torch.utils import trace
 
 NDIGITS = 16  # 16 x 16-bit = 256 bits
 DIGIT_BITS = 16
@@ -120,7 +121,8 @@ def digits_to_limbs(d) -> torch.Tensor:
     By value, not a bit-pack: the limbs hold sum(d_i * 2^(16 i)) mod 2^256,
     so a digit d + 2^16 means what it means to the JAX path's carrying add
     (a bit-pack would alias it to d)."""
-    return words_to_limbs(pack16(carry(as_digits(d))))
+    with trace.span("convert.to_limbs"):
+        return words_to_limbs(pack16(carry(as_digits(d))))
 
 
 def words_to_limbs(words) -> torch.Tensor:
@@ -137,7 +139,8 @@ def words_to_limbs(words) -> torch.Tensor:
 
 def limbs_to_digits(limbs: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`digits_to_limbs`: int32 limbs -> int64 digits."""
-    return unpack16(limbs)
+    with trace.span("convert.to_digits"):
+        return unpack16(limbs)
 
 
 # ---------------------------------------------------------------------------

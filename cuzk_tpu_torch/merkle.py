@@ -25,6 +25,12 @@ with per-proof failure isolation (:func:`verify_each`, :func:`verify_all`:
 a host numpy schedule, one packed upload, a device program of sponge
 launches), incremental leaf updates, batch builds, save/load and the
 MerkleUtils helpers.
+
+Under a ``torch.profiler`` session, :func:`build_tree_levels` and
+:func:`verify_each` are root spans of :mod:`cuzk_tpu_torch.utils.trace`
+(one a request), with ``cuzk.build.pad``, ``cuzk.verify_proofs`` and
+``cuzk.verify.readback`` (the host waiting on the device) inside them, and
+each :func:`verify_each` counts its route (``verify.route.*``).
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import torch
 from cuzk_tpu_torch import constants, native, oracle, poseidon
 from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.ops import poseidon_cuda
-from cuzk_tpu_torch.utils import errors
+from cuzk_tpu_torch.utils import errors, trace
 from cuzk_tpu_torch.utils.device import resolve_device
 from cuzk_tpu_torch.utils.stats import TreeBenchmarkResult
 
@@ -185,18 +191,20 @@ def build_tree_levels(leaves, arity: int = 2, device=None) -> List[torch.Tensor]
     level0 the padded leaves.  ``device`` moves the leaves first; by default
     tensors stay where they are and host data goes to the card.  Empty
     input returns [] (merkle_tree.cpp:29-42)."""
-    MerkleConfig(arity)
-    leaves = fr.as_digits(leaves, device=resolve_device(device, leaves))
-    n = leaves.shape[0]
-    if n == 0:
-        return []
-    padded = padded_leaf_count(n, arity)
-    if padded > n:
-        pad = _empty_hash_digits(arity, leaves.device).expand(
-            padded - n, fr.NDIGITS
-        )
-        leaves = torch.cat([leaves, pad], dim=0)
-    return _build_levels(leaves, arity)
+    with trace.span("build_tree_levels"):
+        MerkleConfig(arity)
+        leaves = fr.as_digits(leaves, device=resolve_device(device, leaves))
+        n = leaves.shape[0]
+        if n == 0:
+            return []
+        padded = padded_leaf_count(n, arity)
+        if padded > n:
+            with trace.span("build.pad"):
+                pad = _empty_hash_digits(arity, leaves.device).expand(
+                    padded - n, fr.NDIGITS
+                )
+                leaves = torch.cat([leaves, pad], dim=0)
+        return _build_levels(leaves, arity)
 
 
 def merkle_root(leaves, arity: int = 2, device=None) -> torch.Tensor:
@@ -338,16 +346,17 @@ def verify_proofs(positions, siblings, leaves, root, arity: int,
     ``root [16]``, all moved to ``device``, else to the leaves' device (the
     first tensor's, the card for host data): the fused verify kernel on
     the card, the plain level-by-level path on the CPU."""
-    errors.validate_range(arity, MIN_ARITY, MAX_ARITY, "arity")
-    device = resolve_device(device, leaves, positions, siblings, root)
-    leaves = fr.as_digits(leaves, device=device)
-    positions = torch.as_tensor(positions, device=device)
-    siblings = fr.as_digits(siblings, device=device)
-    root = fr.as_digits(root, device=device)
-    _check_proof_shapes(positions, siblings, leaves, root, arity)
-    if _engine(device) == "plain":
-        return _verify_plain(positions, siblings, leaves, root, arity)
-    return _verify_cuda(positions, siblings, leaves, root, arity)
+    with trace.span("verify_proofs"):
+        errors.validate_range(arity, MIN_ARITY, MAX_ARITY, "arity")
+        device = resolve_device(device, leaves, positions, siblings, root)
+        leaves = fr.as_digits(leaves, device=device)
+        positions = torch.as_tensor(positions, device=device)
+        siblings = fr.as_digits(siblings, device=device)
+        root = fr.as_digits(root, device=device)
+        _check_proof_shapes(positions, siblings, leaves, root, arity)
+        if _engine(device) == "plain":
+            return _verify_plain(positions, siblings, leaves, root, arity)
+        return _verify_cuda(positions, siblings, leaves, root, arity)
 
 
 def verify_proof(positions, siblings, leaf, root, arity: int,
@@ -788,8 +797,10 @@ def _on_card(*xs) -> bool:
 def _verdicts(positions, siblings, leaves, root, arity: int,
               dedupe: Optional[bool], device):
     """:func:`verify_each`'s verdicts: a ``[k]`` bool tensor on the card for
-    proofs already there, else a host array."""
+    proofs already there, else a host array.  Counts the route it takes:
+    ``verify.route.card``, ``.dedup`` or ``.exact``."""
     if dedupe is not True and _on_card(positions, siblings, leaves):
+        trace.count("verify.route.card")
         return verify_proofs(positions, siblings, leaves, root, arity,
                              device=device)
     device = resolve_device(device, positions, siblings, leaves, root)
@@ -801,7 +812,9 @@ def _verdicts(positions, siblings, leaves, root, arity: int,
     if dedupe and h >= 1 and k >= 2:
         res = _dedup_results(pos, sib, lv, rt, arity, device)
         if res is not None:
+            trace.count("verify.route.dedup")
             return res
+    trace.count("verify.route.exact")
     return _exact(pos, sib, lv, rt, arity, device)
 
 
@@ -818,8 +831,13 @@ def verify_each(positions, siblings, leaves, root, arity: int,
     share tree nodes (``dedupe`` defaults to ``k >= 64 and h >= 2``) take
     the deduplicated schedule with failure isolation, built on the host;
     the rest, and every batch the gates decline, the per-proof path."""
-    out = _verdicts(positions, siblings, leaves, root, arity, dedupe, device)
-    return out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+    with trace.span("verify_each"):
+        out = _verdicts(positions, siblings, leaves, root, arity, dedupe,
+                        device)
+        if not isinstance(out, torch.Tensor):
+            return out
+        with trace.span("verify.readback", wait=True):
+            return out.cpu().numpy()
 
 
 def verify_all(positions, siblings, leaves, root, arity: int,

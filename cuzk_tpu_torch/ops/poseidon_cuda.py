@@ -38,7 +38,8 @@ word: on the card those words are K1's limbs as they stand, so they go to
 the kernel with no digit round trip.
 
 ``launch_counts`` counts each kernel's launches, so that a run can show
-which kernels its main path went through.
+which kernels its main path went through.  K1 and K3's launchers are the
+spans ``cuzk.k1`` and ``cuzk.k3`` (:mod:`cuzk_tpu_torch.utils.trace`).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import torch
 from cuzk_tpu_torch import constants, poseidon
 from cuzk_tpu_torch.field import fr
 from cuzk_tpu_torch.ops import _build
+from cuzk_tpu_torch.utils import trace
 from cuzk_tpu_torch.utils.device import resolve_device
 from cuzk_tpu_torch.utils.errors import KernelLaunchError, ValidationError
 
@@ -179,20 +181,22 @@ def sponge_limbs(x: torch.Tensor, ds: int, lanes=None) -> torch.Tensor:
     the sponge with domain separator ``ds`` over each row's n inputs.
     ``lanes`` forces G (one of :data:`LANES`); by default
     :func:`choose_lanes` picks it."""
-    kernels = _build.kernels()
-    _check_limbs(x, "inputs", 3)
-    b, n, nl = x.shape
-    if nl != NL:
-        raise ValidationError(f"inputs must be [B, n, {NL}] limbs, got {x.shape}")
-    out = torch.empty((b, NL), dtype=torch.int32, device=x.device)
-    if b == 0 or n == 0:
-        # The empty input returns 0 with no permutation (SURVEY.md B.4).
-        return out.zero_()
-    g = _lanes(lanes, b, x.device, "sponge")
-    _launch(kernels, kernels.lib.cuzk_sponge, x.device,
-            x.data_ptr(), out.data_ptr(), b, n, ds, g)
-    launch_counts["sponge"] += 1
-    return out
+    with trace.span("k1"):
+        kernels = _build.kernels()
+        _check_limbs(x, "inputs", 3)
+        b, n, nl = x.shape
+        if nl != NL:
+            raise ValidationError(
+                f"inputs must be [B, n, {NL}] limbs, got {x.shape}")
+        out = torch.empty((b, NL), dtype=torch.int32, device=x.device)
+        if b == 0 or n == 0:
+            # The empty input returns 0 with no permutation (SURVEY.md B.4).
+            return out.zero_()
+        g = _lanes(lanes, b, x.device, "sponge")
+        _launch(kernels, kernels.lib.cuzk_sponge, x.device,
+                x.data_ptr(), out.data_ptr(), b, n, ds, g)
+        launch_counts["sponge"] += 1
+        return out
 
 
 def _sponge(inputs, ds: int) -> torch.Tensor:
@@ -385,34 +389,35 @@ def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
     ``leaves [k, 8]`` and ``root [8]`` int32 on the card, h >= 1 ->
     ``[k] bool``, whether each proof's recomputed root equals ``root``.
     ``lanes`` forces G; by default :func:`choose_lanes` picks it."""
-    kernels = _build.kernels()
-    _check_limbs(positions, "positions", 2)
-    _check_limbs(siblings, "siblings", 4)
-    _check_limbs(leaves, "leaves", 2)
-    _check_limbs(root, "root", 1)
-    k, h = positions.shape
-    if len({t.device for t in (positions, siblings, leaves, root)}) != 1:
-        raise ValidationError("proof limbs must lie on one device")
-    if not constants.MIN_ARITY <= arity <= constants.MAX_ARITY:
-        raise ValidationError(f"arity must be in [2, 8], got {arity}")
-    if h < 1 or (
-        tuple(siblings.shape) != (k, h, arity - 1, NL)
-        or tuple(leaves.shape) != (k, NL)
-        or tuple(root.shape) != (NL,)
-    ):
-        raise ValidationError(
-            f"proof limbs disagree: positions {tuple(positions.shape)}, "
-            f"siblings {tuple(siblings.shape)}, leaves {tuple(leaves.shape)}, "
-            f"root {tuple(root.shape)}, arity {arity}"
-        )
-    ok = torch.empty(k, dtype=torch.uint8, device=leaves.device)
-    if k:
-        g = _lanes(lanes, k, leaves.device, "verify")
-        _launch(kernels, kernels.lib.cuzk_verify, leaves.device,
-                positions.data_ptr(), siblings.data_ptr(), leaves.data_ptr(),
-                root.data_ptr(), ok.data_ptr(), k, h, arity, g)
-        launch_counts["verify"] += 1
-    return ok.bool()
+    with trace.span("k3"):
+        kernels = _build.kernels()
+        _check_limbs(positions, "positions", 2)
+        _check_limbs(siblings, "siblings", 4)
+        _check_limbs(leaves, "leaves", 2)
+        _check_limbs(root, "root", 1)
+        k, h = positions.shape
+        if len({t.device for t in (positions, siblings, leaves, root)}) != 1:
+            raise ValidationError("proof limbs must lie on one device")
+        if not constants.MIN_ARITY <= arity <= constants.MAX_ARITY:
+            raise ValidationError(f"arity must be in [2, 8], got {arity}")
+        if h < 1 or (
+            tuple(siblings.shape) != (k, h, arity - 1, NL)
+            or tuple(leaves.shape) != (k, NL)
+            or tuple(root.shape) != (NL,)
+        ):
+            raise ValidationError(
+                f"proof limbs disagree: positions {tuple(positions.shape)}, "
+                f"siblings {tuple(siblings.shape)}, leaves {tuple(leaves.shape)}, "
+                f"root {tuple(root.shape)}, arity {arity}"
+            )
+        ok = torch.empty(k, dtype=torch.uint8, device=leaves.device)
+        if k:
+            g = _lanes(lanes, k, leaves.device, "verify")
+            _launch(kernels, kernels.lib.cuzk_verify, leaves.device,
+                    positions.data_ptr(), siblings.data_ptr(), leaves.data_ptr(),
+                    root.data_ptr(), ok.data_ptr(), k, h, arity, g)
+            launch_counts["verify"] += 1
+        return ok.bool()
 
 
 # ---------------------------------------------------------------------------

@@ -605,3 +605,39 @@ def test_digit_forms_take_rows_off_16_bytes(cuda_device):
     st = st.view(11, 3, 16)
     st.copy_(digits(rng, (11, 3), cuda_device))
     assert torch.equal(poseidon_cuda.permutation_cuda(st), poseidon.permutation(st))
+
+
+def test_traced_build_and_verify_count_their_launches(cuda_device):
+    """Under a profiler session the port's spans and launch counts read one
+    K1 launch and one ``cuzk.k1`` span a level of a 65,536-leaf arity-4
+    build (8), and one K3 launch for a 5,000-proof verify of card proofs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuzk_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(509)
+    leaves = digits(rng, (65_536,), cuda_device)
+    levels = merkle.build_tree_levels(leaves, 4)
+    idx = torch.as_tensor(rng.integers(0, 65_536, 5_000), device=cuda_device)
+    pos, sib = merkle.generate_proofs(levels, 4, idx)
+    merkle.verify_each(pos, sib, leaves[idx], levels[-1][0], 4)  # warm
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    with profile(activities=activities):
+        merkle.build_tree_levels(leaves, 4)
+        torch.cuda.synchronize()
+    t = trace.totals()
+    assert t["requests"] == 1
+    assert t["counters"]["launch.sponge"] == 8
+    assert sum(r["count"] for r in t["spans"] if r["name"] == "cuzk.k1") == 8
+
+    with profile(activities=activities):
+        ok = merkle.verify_each(pos, sib, leaves[idx], levels[-1][0], 4)
+    assert ok.all()
+    t = trace.totals()
+    assert t["requests"] == 1
+    assert t["counters"]["launch.verify"] == 1
+    assert t["counters"]["launch.sponge"] == 0
+    assert t["counters"]["verify.route.card"] == 1
+    assert t["wait_s"] > 0
