@@ -169,11 +169,12 @@ SHARDED_RANKS = (1, 4)
 TAMPERED_1M = (17, 1234, 4321)  # leaf, sibling, position
 
 
-# K1's and K3's registers as their core compiles with nvcc 12.9 for sm_90a:
-# K4's own core beside it must leave their code as it was.
+# K1's and K3's registers as they compile with nvcc 12.9 for sm_90a: at
+# G = 1 the one-thread core K4 runs (78 registers in K4), at G = 3 the
+# element split.
 K1_K3_PTXAS = {
-    "sponge_kernel<1>": 96, "sponge_kernel<3>": 72,
-    "verify_kernel<1>": 128, "verify_kernel<3>": 80,
+    "sponge_kernel<1>": 80, "sponge_kernel<3>": 72,
+    "verify_kernel<1>": 88, "verify_kernel<3>": 80,
 }
 # Phase 7's K4 sweep (states a launch) and the batch field op's shapes:
 # phase 2's operand count and one launch that fills the card many times.
@@ -743,6 +744,12 @@ def main() -> None:
           f"K1/K3 ptxas records moved: {got_k1_k3}, expected {K1_K3_PTXAS}")
     print(f"phase 1 K1/K3 ptxas as expected: {got_k1_k3} registers, "
           f"0 stack, 0 spills", flush=True)
+    k1_k3_sass = {}
+    for name in K1_K3_PTXAS:
+        sass = sass_instructions(kernels.path,
+                                 name.replace("<", "ILi").replace(">", "E"))
+        k1_k3_sass[name] = None if sass is None else len(sass[0])
+    print(f"phase 1 K1/K3 SASS instructions a kernel: {k1_k3_sass}", flush=True)
     clock_hz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
@@ -1377,11 +1384,11 @@ def main() -> None:
         x4 = fr.digits_to_limbs(digits((n_groups, 4))).contiguous()
         sweep_point(f"K1 arity-4 x {n_groups}", lambda g, x=x4: pc.sponge_limbs(
             x, poseidon.DS_MULTIPLE, lanes=g), n_groups, "sponge")
-    for n_pairs in (4096, 65536, 262144):
+    for n_pairs in (4096, 8192, 65536, 262144):
         x2 = fr.digits_to_limbs(digits((n_pairs, 2))).contiguous()
         sweep_point(f"K1 pairs x {n_pairs}", lambda g, x=x2: pc.sponge_limbs(
             x, poseidon.DS_PAIR, lanes=g), n_pairs, "sponge")
-    for n_k in (500, 5000, 50000):
+    for n_k in (500, 2500, 5000, 50000):
         idx14 = torch.as_tensor(
             np.random.default_rng(14).integers(0, n_leaves, n_k), device=dev)
         p14, s14 = tree.generate_batch_proofs(idx14)
@@ -1470,7 +1477,7 @@ def main() -> None:
         "build_50k_k1_ms": build_k1_ms, "launches_by_slice": by_slice,
         **slice5_numbers, **slice6_numbers, "sweep": sweep,
         "resident_states": resident, "clocks_max_sm_mhz": clock_hz / 1e6,
-        "ptxas": kernels.ptxas, "card": name_power}
+        "ptxas": kernels.ptxas, "k1_k3_sass": k1_k3_sass, "card": name_power}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

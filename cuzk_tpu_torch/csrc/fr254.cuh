@@ -24,15 +24,17 @@
 //     addc.cc): one instruction per multiply result or limb add, and every
 //     constant an immediate.
 //   - Operations are batched over N independent elements (Vec<N>), so that
-//     the chains of a full round's three S-boxes interleave.
+//     independent chains interleave.
 //   - One thread holds an element.  Splitting its limbs across 4 or 8 lanes
 //     of a warp was built and measured on an H100: a multiply then takes
 //     14-16 dependent shuffle and ballot rounds, which cost more than the
 //     products they divide, slower at every measured shape (PERF.md).  What
 //     pays below a wave is splitting the state's three elements across
 //     lanes instead (poseidon.cuh).
-//   - The raw permutation (K4) has forms of its own, for the pipes of a
-//     full wave (section "K4's core" below); K1 and K3 use the ones above.
+//   - One thread a state (K4, and K1 and K3 at G = 1) runs forms of its
+//     own, for the pipes of a full wave (section "The one-thread core"
+//     below); the element split and the per-op check kernel use the ones
+//     above.
 #pragma once
 
 #include <cstdint>
@@ -481,9 +483,10 @@ __device__ __forceinline__ Vec<N> mul_small_rr(const Vec<N>& a,
 }
 
 // ---------------------------------------------------------------------------
-// K4's core: the same values as mul_wide, square_wide, reduce_wide, red and
-// mul_small_rr, formed for the pipes of a full wave.  K1 and K3 keep the
-// forms above.
+// The one-thread core (K4's body, and K1's and K3's at G = 1): the same
+// values as mul_wide, square_wide, reduce_wide, red and mul_small_rr,
+// formed for the pipes of a full wave.  The element split keeps the forms
+// above.
 //
 // What bounds the forms above at a full wave is the integer ALU pipe, not
 // the multiplier: each multiply result costs one IMAD and one IADD3.X

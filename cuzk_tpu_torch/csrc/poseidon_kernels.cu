@@ -21,15 +21,16 @@
 // the main path's launches are that small (a Merkle level of 64-4,096
 // groups, 5,000 proofs).  So the sponge and the verify kernel take G lanes
 // of a warp per state:
-//   - G = 1, one thread per state, for launches from an eighth of a wave up,
-//     where only the issue rate counts;
+//   - G = 1, one thread per state, for launches from a twentieth of a wave
+//     up, where only the issue rate counts: the body K4 runs, laid out for
+//     it (poseidon.cuh);
 //   - G = 3, three lanes of a four-lane group each holding one state element
 //     (poseidon.cuh): a full round's three S-boxes and the MDS's three rows
-//     run in parallel, with no carry between lanes; 1.4-1.6x shorter per
-//     state than G = 1 on an H100.
+//     run in parallel, with no carry between lanes; shorter per state than
+//     G = 1 on an H100 (0.216 against 0.240 ms at 4,096 pairs).
 // The wrapper picks G from the batch and the resident threads
-// (ops/poseidon_cuda.py::choose_lanes).  The raw permutation keeps G = 1
-// and has a body of its own (permute_full_ilp), laid out for a full wave.
+// (ops/poseidon_cuda.py::choose_lanes).  The raw permutation runs one
+// thread a state.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -45,9 +46,11 @@ constexpr int VERIFY_THREADS = 64;
 constexpr int PERMUTATION_THREADS = 128;
 constexpr int FR_OP_THREADS = 128;
 // Launch bounds' minimum blocks per SM: unset (0) for one thread per
-// state, where ptxas keeps to 96-128 registers for the card's occupancy at
-// large batches; 1 for the element split, the latency regime below a
-// wave, where ptxas may take what registers it needs.
+// state, where ptxas gives the one-thread core 80 (K1) and 88 (K3)
+// registers with no spills, near K4's 78; a minimum of 640-1,024 resident
+// threads an SM held them to 64-96 registers, spilled (K3 at every one)
+// and gained at most 2% (PERF.md).  1 for the element split, the latency
+// regime below a wave, where ptxas may take what registers it needs.
 constexpr int min_blocks(int lanes) { return lanes > 1 ? 1 : 0; }
 
 // Threads a state takes: one, or a four-lane group for the element split.

@@ -17,10 +17,10 @@ does, and runs where its tensors lie:
   fallback: without a Hopper card, or when the build fails, it raises.
 
 K1 and K3 run G lanes of a warp per state: one thread per state (G = 1),
-or three lanes holding one state element each (G = 3,
-``csrc/poseidon.cuh``).  :func:`choose_lanes` picks 3 for small launches
-and 1 for large ones, from the crossover ``chip_smoke.py``'s sweep
-measures; ``lanes=`` forces G, for the tests and the sweep.
+on the permutation body K4 runs, or three lanes holding one state element
+each (G = 3, ``csrc/poseidon.cuh``).  :func:`choose_lanes` picks 3 for
+small launches and 1 for large ones, from the crossover ``chip_smoke.py``'s
+sweep measures; ``lanes=`` forces G, for the tests and the sweep.
 
 The TPU path's batch and width bucketing (``_bucket_tiles``,
 ``_bucket_batch``, ``PAD_WIDTH``, ``_SCALAR_CACHE``) existed to bound
@@ -39,7 +39,9 @@ the kernel with no digit round trip.
 
 ``launch_counts`` counts each kernel's launches, so that a run can show
 which kernels its main path went through.  K1 and K3's launchers are the
-spans ``cuzk.k1`` and ``cuzk.k3`` (:mod:`cuzk_tpu_torch.utils.trace`).
+spans ``cuzk.k1`` and ``cuzk.k3`` (:mod:`cuzk_tpu_torch.utils.trace`), and
+count each launch under the G it took, ``k1.lanes.<G>`` and
+``k3.lanes.<G>``, while a profiler session records.
 """
 
 from __future__ import annotations
@@ -122,20 +124,22 @@ def _on_device(x, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # The crossover of the lanes sweep (chip_smoke.py phase 14, NVIDIA H100
-# 80GB HBM3 at 700 W): the element split (3 lanes) is 1.4-1.6x faster than
-# one thread per state up to 5,000 states, and 1.5x slower from 16,384 on,
-# where its four threads per state make the launch issue-bound.  A wave is
-# 67,584-84,480 states, so the split stops at an eighth of one.
+# 80GB HBM3 at 700 W), one thread per state on K4's permutation body: the
+# element split (3 lanes) is faster up to 4,096 sponge rows (of 2, 4 or 8
+# inputs) and 4,000 proofs, and slower from 4,608 rows and 4,250 proofs
+# on, where its four threads per state make the launch issue-bound.  A wave
+# is 101,376 sponge states and 84,480 proofs, so the split stops at a
+# twentieth of one: 5,068 rows, 4,224 proofs.
 SPLIT_LANES = 3
-SPLIT_FRACTION = 8
+SPLIT_FRACTION = 20
 
 
 def choose_lanes(batch: int, resident: int) -> int:
     """G for a launch of ``batch`` states on a card that holds ``resident``
-    states at one thread each: the element split (3 lanes) up to an eighth
-    of a wave, where one state's latency bounds the launch; one thread per
-    state above it, where the issue rate does.  A pure function, so the
-    choice can be tested."""
+    states at one thread each: the element split (3 lanes) up to a
+    twentieth of a wave, where one state's latency bounds the launch; one
+    thread per state above it, where the issue rate does.  A pure function,
+    so the choice can be tested."""
     return SPLIT_LANES if batch * SPLIT_FRACTION <= resident else 1
 
 
@@ -196,6 +200,7 @@ def sponge_limbs(x: torch.Tensor, ds: int, lanes=None) -> torch.Tensor:
         _launch(kernels, kernels.lib.cuzk_sponge, x.device,
                 x.data_ptr(), out.data_ptr(), b, n, ds, g)
         launch_counts["sponge"] += 1
+        trace.count(f"k1.lanes.{g}")
         return out
 
 
@@ -417,6 +422,7 @@ def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
                     positions.data_ptr(), siblings.data_ptr(), leaves.data_ptr(),
                     root.data_ptr(), ok.data_ptr(), k, h, arity, g)
             launch_counts["verify"] += 1
+            trace.count(f"k3.lanes.{g}")
         return ok.bool()
 
 

@@ -69,10 +69,6 @@ void h_verify(const int32_t* pos, const uint32_t* sib, const uint32_t* leaf, con
 void h_perm(const uint32_t* in, uint32_t* out, int64_t batch) {
   for (int64_t b = 0; b < batch; b++) { Vec<T> s; for (int i = 0; i < T; i++) s.e[i] = load(in + (b * T + i) * NL);
     permute_full_ilp(s); for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s.e[i]); } }
-void h_perm_k1k3(const uint32_t* in, uint32_t* out, int64_t batch) {
-  for (int64_t b = 0; b < batch; b++) { Vec<T> s; for (int i = 0; i < T; i++) s.e[i] = load(in + (b * T + i) * NL);
-    s = add_wrap_red(s, round_constants(0)); permute_rounds(s);
-    for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s.e[i]); } }
 void h_perm_digits(const int64_t* in, int64_t* out, int64_t batch) {
   for (int64_t b = 0; b < batch; b++) { Vec<T> s; for (int i = 0; i < T; i++) s.e[i] = load_digits(in + (b * T + i) * 16);
     permute_full_ilp(s); for (int i = 0; i < T; i++) store_digits(out + (b * T + i) * 16, s.e[i]); } }
@@ -124,7 +120,6 @@ def host_kernels(tmp_path_factory):
     h.h_verify.argtypes = [p, p, p, p, p, i64, i32, i32, i32]
     h.h_perm.argtypes = [p, p, i64]
     h.h_fr_op.argtypes = [i32, p, p, u32, p, i64]
-    h.h_perm_k1k3.argtypes = [p, p, i64]
     h.h_perm_digits.argtypes = [p, p, i64]
     h.h_load_digits.argtypes = [p, p, i64]
     h.h_store_digits.argtypes = [p, p, i64]
@@ -300,17 +295,64 @@ def test_k4_body_against_plain_jax_and_oracle(form, host_kernels):
     assert torch.equal(got[below], torch.from_numpy(jax_out.astype(np.int64)))
 
 
-def test_k4_body_equals_the_k1_k3_rounds(host_kernels):
-    """permute_full_ilp (K4's body) and permute_rounds (K1/K3's) after the
-    same round-0 add, on random states of any 256-bit value: the same
-    bits."""
-    rng = np.random.default_rng(72)
-    st = rnd(rng, (16, 3))
-    x = limbs(st)
-    out_k1k3, out_k4 = np.zeros_like(x), np.zeros_like(x)
-    host_kernels.h_perm_k1k3(x.ctypes.data, out_k1k3.ctypes.data, 16)
-    host_kernels.h_perm(x.ctypes.data, out_k4.ctypes.data, 16)
-    assert np.array_equal(out_k1k3, out_k4)
+def run_k1(host_kernels, g, lanes):
+    """K1's body under ``lanes`` on ``[B, n, 16]`` digit rows, ds = 3."""
+    b, n = g.shape[:2]
+    x = limbs(g)
+    out = np.zeros((b, 8), np.uint32)
+    host_kernels.h_sponge(x.ctypes.data, out.ctypes.data, b, n, 3, lanes)
+    return digits_of(out)
+
+
+def run_k3(host_kernels, pos, sib, leaves, root, arity, lanes):
+    """K3's body under ``lanes``: one verdict a proof."""
+    k, h = pos.shape
+    p = np.ascontiguousarray(pos.clamp(-1, arity).to(torch.int32).numpy())
+    s, lv, r = limbs(sib), limbs(leaves), limbs(root)
+    ok = np.zeros(k, np.uint8)
+    host_kernels.h_verify(p.ctypes.data, s.ctypes.data, lv.ctypes.data,
+                          r.ctypes.data, ok.ctypes.data, k, h, arity, lanes)
+    return ok.astype(bool).tolist()
+
+
+@pytest.mark.parametrize("body,size", [("k1", w) for w in range(1, 9)]
+                         + [("k3", a) for a in (2, 4, 8)])
+def test_one_thread_body_equals_the_split_and_the_oracle(body, size,
+                                                         host_kernels):
+    """K1 and K3 at G = 1 (the permutation body K4 runs) against G = 3 (the
+    element split).  K1 at widths 1-8 (the arity-8 sponge's four
+    permutations) on rows holding 0, 1, p - 1, p and 2^256 - 1 and a digit
+    d + 2^16, also against the plain sponge and the oracle; K3 at arity 2,
+    4 and 8 on valid and tampered proofs, also against the plain verify."""
+    from cuzk_tpu import oracle
+
+    rng = np.random.default_rng(72 + size)
+    if body == "k1":
+        edges = [0, 1, constants.P - 1, constants.P, (1 << 256) - 1]
+        g = torch.cat([
+            fr.ints_to_array([edges[(r + i) % 5] for r in range(2)
+                              for i in range(size)]).reshape(2, size, 16),
+            rnd(rng, (2, size))])
+        g[2, size - 1, 3] += 1 << 16  # non-canonical digit: by value
+        one = run_k1(host_kernels, g, 1)
+        assert torch.equal(one, run_k1(host_kernels, g, 3))
+        assert torch.equal(one, poseidon.hash_multiple(g))
+        assert fr.array_to_ints(one) == [
+            oracle.hash_multiple([fr.digits_to_int(d) % (1 << 256) for d in row])
+            for row in g.tolist()]
+        return
+    arity = size
+    levels = merkle.build_tree_levels(rnd(rng, (arity + 3,)), arity, device=CPU)
+    idx = [0, 1, arity + 2]
+    pos, sib = merkle.generate_proofs(levels, arity, idx)
+    leaves = levels[0][idx].clone()
+    leaves[1, 0] ^= 1
+    sib[2, 0, arity - 2, 5] += 1 << 16
+    root = levels[-1][0]
+    want = merkle._verify_plain(pos, sib, leaves, root, arity).tolist()
+    assert want == [True, False, False]
+    assert run_k3(host_kernels, pos, sib, leaves, root, arity, 1) == want
+    assert run_k3(host_kernels, pos, sib, leaves, root, arity, 3) == want
 
 
 def test_digit_read_and_write_against_fr(host_kernels):

@@ -103,7 +103,7 @@ def test_cpu_by_name_or_by_tensor_runs_the_plain_path(no_cuda):
     assert engine.TorchPoseidonEngine(device=CPU).device.type == "cpu"
 
 
-@pytest.mark.parametrize("resident", [1, 7, 1024, 67_584, 84_480])
+@pytest.mark.parametrize("resident", [1, 7, 1024, 67_584, 84_480, 101_376])
 def test_choose_lanes_is_one_at_a_wave_and_more_below(resident):
     choose = poseidon_cuda.choose_lanes
     for batch in (resident, resident + 1, 2 * resident, 10 * resident):
@@ -118,13 +118,14 @@ def test_choose_lanes_is_one_at_a_wave_and_more_below(resident):
 
 
 def test_choose_lanes_at_the_swept_shapes():
-    """The sweep's winners on an H100 (84,480 sponge and 67,584 verify
+    """The sweep's winners on an H100 (101,376 sponge and 84,480 verify
     states a wave): the split for 64-4,096 arity groups or pairs and for
-    500-5,000 proofs, one thread from 16,384 groups and 50,000 proofs."""
+    500-2,500 proofs, one thread from 6,144 groups and 5,000 proofs."""
     choose = poseidon_cuda.choose_lanes
-    assert [choose(b, 84_480) for b in (64, 1024, 4096, 16384, 65536, 262144)] \
-        == [3, 3, 3, 1, 1, 1]
-    assert [choose(b, 67_584) for b in (500, 5000, 50000)] == [3, 3, 1]
+    assert [choose(b, 101_376) for b in
+            (64, 1024, 4096, 6144, 8192, 16384, 65536, 262144)] \
+        == [3, 3, 3, 1, 1, 1, 1, 1]
+    assert [choose(b, 84_480) for b in (500, 2500, 5000, 50000)] == [3, 3, 1, 1]
 
 
 def test_lanes_argument_is_checked():

@@ -15,6 +15,7 @@ import os
 import sys
 import threading
 import time
+import types
 
 import pytest
 import torch
@@ -162,6 +163,55 @@ def test_launches_are_the_sessions_change_of_launch_counts(monkeypatch):
     poseidon_cuda.launch_counts["sponge"] += 4  # after it
     c = trace.totals()["counters"]
     assert c["launch.sponge"] == 3 and c["launch.verify"] == 0
+
+
+def _fake_launches(monkeypatch):
+    """K1's and K3's launchers on CPU tensors with every kernel call a
+    no-op: the wrappers still pick G from the batch, count the launch and
+    record their counters.  A card holds 84,480 states at G = 1."""
+    monkeypatch.setattr(poseidon_cuda._build, "kernels",
+                        lambda: types.SimpleNamespace(lib=types.SimpleNamespace(
+                            cuzk_sponge=None, cuzk_verify=None)))
+    monkeypatch.setattr(poseidon_cuda, "_check_limbs", lambda *a: None)
+    monkeypatch.setattr(poseidon_cuda, "_launch", lambda *a: None)
+    monkeypatch.setattr(poseidon_cuda, "resident_states", lambda *a: 84_480)
+
+    def calls():
+        i32 = torch.int32
+        with trace.span("root"):
+            for rows in (64, 65_536, 70_000):  # G = 3, 1, 1
+                poseidon_cuda.sponge_limbs(torch.zeros((rows, 2, 8), dtype=i32), 2)
+            k, h = 1_000, 3  # G = 3
+            poseidon_cuda.verify_limbs(
+                torch.zeros((k, h), dtype=i32), torch.zeros((k, h, 1, 8), dtype=i32),
+                torch.zeros((k, 8), dtype=i32), torch.zeros(8, dtype=i32), 2)
+    return calls
+
+
+def test_lanes_counters_count_each_launch_under_its_g(monkeypatch):
+    calls = _fake_launches(monkeypatch)
+    before = trace.totals()
+    calls()  # no session: nothing recorded
+    assert trace.totals() == before
+    with session():
+        calls()
+    c = trace.totals()["counters"]
+    lanes = {k: v for k, v in c.items() if ".lanes." in k}
+    assert lanes == {"k1.lanes.3": 1, "k1.lanes.1": 2, "k3.lanes.3": 1}
+    assert c["launch.sponge"] == 3 and c["launch.verify"] == 1
+
+
+def test_launches_metric_reads_the_same_launches_beside_the_lanes_counters(
+        monkeypatch):
+    from zkbench.metrics import launches
+
+    calls = _fake_launches(monkeypatch)
+    with session():
+        calls()
+        calls()
+    assert trace.totals()["counters"]["k1.lanes.1"] == 4
+    # 3 K1 launches and 1 K3 launch a request, whatever G each took.
+    assert launches.read(types.SimpleNamespace(requests=2)) == 4.0
 
 
 def _tree():
