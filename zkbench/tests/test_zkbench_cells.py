@@ -4,6 +4,7 @@ the cuZK CUDA sources' k + 4 in the program's place) does not, nor does a
 run with the timed path broken underneath; inputs follow the seed; the
 measured command refuses a machine without a card."""
 
+import json
 import os
 import subprocess
 import sys
@@ -14,9 +15,14 @@ import torch
 
 from cuzk_tpu_torch import merkle
 from zkbench import run
+from zkbench.tests.conftest import UPDATE_CELL
 
-CELLS = ["semaphore-d20.commit", "cuzk-a4-50k.commit", "cuzk-a4-50k.verify",
-         "semaphore-d20.update64"]
+# Every cell of BENCHMARK.json and the tiny root's update cell, with its
+# traffic kind, so that a cell added as files is driven here too.
+with open(run.BENCHMARK_JSON) as _fh:
+    KINDS = {w["name"]: w["traffic"] for w in json.load(_fh)["workloads"]}
+KINDS[UPDATE_CELL["name"]] = UPDATE_CELL["traffic"]
+CELLS = list(KINDS)
 SEED = 2_147_483_659  # above 2^31, as the driver's seeds are
 
 
@@ -89,10 +95,12 @@ class Faulty:
         return new
 
 
-TIMED = {"semaphore-d20.commit": "build_tree_levels",
-         "cuzk-a4-50k.commit": "build_tree_levels",
-         "cuzk-a4-50k.verify": "verify_each",
-         "semaphore-d20.update64": "update_tree_levels"}
+# The program's entry point that each traffic kind times.
+TIMED_BY_KIND = {"commit": "build_tree_levels",
+                 "sampled_commit": "build_tree_levels",
+                 "verify": "verify_each",
+                 "update": "update_tree_levels"}
+TIMED = {name: TIMED_BY_KIND[kind] for name, kind in KINDS.items()}
 FAULTS = [(c, f) for c in CELLS for f in ("answer_altered", "half_left_out")]
 FAULTS.append(("semaphore-d20.update64", "state_unchanged"))
 
