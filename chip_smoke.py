@@ -169,11 +169,12 @@ SHARDED_RANKS = (1, 4)
 TAMPERED_1M = (17, 1234, 4321)  # leaf, sibling, position
 
 
-# K1's and K3's registers as they compile with nvcc 12.9 for sm_90a: at
-# G = 1 the one-thread core K4 runs (78 registers in K4), at G = 3 the
-# element split.
+# K1's (in both input forms) and K3's registers as they compile with nvcc
+# 12.9 for sm_90a: at G = 1 the one-thread core K4 runs (78 registers in
+# K4), at G = 3 the element split.
 K1_K3_PTXAS = {
     "sponge_kernel<1>": 80, "sponge_kernel<3>": 72,
+    "sponge_digits_kernel<1>": 80, "sponge_digits_kernel<3>": 72,
     "verify_kernel<1>": 88, "verify_kernel<3>": 80,
 }
 # Phase 7's K4 sweep (states a launch) and the batch field op's shapes:
@@ -734,7 +735,8 @@ def main() -> None:
     for name in sorted(kernels.ptxas):
         rec = kernels.ptxas[name]
         print(f"phase 1 ptxas {name}: {rec}", flush=True)
-        if name.startswith(("sponge_kernel", "verify_kernel")):
+        if name.startswith(("sponge_kernel", "sponge_digits_kernel",
+                            "verify_kernel")):
             check(rec.get("stack_frame") == 0 and rec.get("spill_stores") == 0
                   and rec.get("spill_loads") == 0,
                   f"{name} uses local memory: {rec}")
@@ -870,10 +872,12 @@ def main() -> None:
         for g in pc.LANES:
             o = 0
             for size in edge_sizes:
-                got = pc.sponge_limbs(limbs[o:o + size], poseidon.DS_MULTIPLE,
-                                      lanes=g)
-                k1_err = max(k1_err, max_abs_err(fr.limbs_to_digits(got),
-                                                 want[o:o + size]))
+                for got in (pc.sponge_limbs(limbs[o:o + size],
+                                            poseidon.DS_MULTIPLE, lanes=g),
+                            pc.sponge_digits(g_all[o:o + size],
+                                             poseidon.DS_MULTIPLE, lanes=g)):
+                    k1_err = max(k1_err, max_abs_err(fr.limbs_to_digits(got),
+                                                     want[o:o + size]))
                 o += size
     check(k1_err == 0, f"K1 disagrees with the plain sponge (max err {k1_err})")
 
@@ -895,7 +899,8 @@ def main() -> None:
         got = got if isinstance(want, list) else got[0]
         check(got == want, f"golden {op}{args}: {got} != {want}")
     print(f"phase 3 sponge: widths {list(WIDTHS)} at batch {batch} = plain; "
-          f"every G {list(pc.LANES)} at batches {edge_sizes} = plain; "
+          f"every G {list(pc.LANES)} at batches {edge_sizes} = plain, on "
+          f"limbs and on digits; "
           f"{len(GOLDEN)} golden values ok", flush=True)
 
     # Kernel and plain times at the main path's shapes (pair hash, batch
@@ -907,6 +912,12 @@ def main() -> None:
     k1_plain_ms = cuda_time_ms(plain_pair, iters=1, warmup=0)
     k1_err = max(k1_err, max_abs_err(
         fr.limbs_to_digits(pc.sponge_limbs(pair_limbs, poseidon.DS_PAIR)),
+        plain_pair()))
+    # K1's digit form on the same pairs, read by value in the kernel.
+    k1_digits_ms = cuda_time_ms(
+        lambda: pc.sponge_digits(pair_digits, poseidon.DS_PAIR))
+    k1_err = max(k1_err, max_abs_err(
+        fr.limbs_to_digits(pc.sponge_digits(pair_digits, poseidon.DS_PAIR)),
         plain_pair()))
     check(k1_err == 0, "K1 disagrees with plain at batch 65536")
 
@@ -1426,7 +1437,7 @@ def main() -> None:
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "share": k1_bound / k1_ms, "lanes": k1_lanes,
-         "library_ms": None},
+         "library_ms": None, "digits_ms": k1_digits_ms},
         {"name": "verify", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
          "replaces": "cuzk_tpu/ops/poseidon_pallas.py:385",

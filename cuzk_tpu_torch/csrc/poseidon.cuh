@@ -133,17 +133,31 @@ __device__ __forceinline__ void absorb(Vec<T>& s, const Fe& x0, const Fe& x1,
   permute(s);
 }
 
+// K1's two input forms: an input is 8 u32 limbs, or 16 int64 digits read
+// by value (fr254.cuh::load_digits, as fr.digits_to_limbs reads them), so
+// that a caller holding digits converts nothing before the launch.
+// INPUT_WORDS<E> is an input's width in words of its form.
+template <typename E>
+constexpr int INPUT_WORDS = sizeof(E) == sizeof(uint32_t) ? NL : 2 * NL;
+
+__device__ __forceinline__ Fe load_input(const uint32_t* x) { return load(x); }
+
+__device__ __forceinline__ Fe load_input(const int64_t* x) {
+  return load_digits(x);
+}
+
 // K1's body: the width-dynamic sponge (poseidon.cpp:103-126) over the n
-// inputs at x (n x 8 limbs).  State [ds, 0, 0]; per block of two inputs,
-// absorb, then permute; squeeze state[1].  An odd last block absorbs one
-// input: the TPU kernel's padded zero is a no-op on the reduced state.
-__device__ __forceinline__ Fe sponge_row(const uint32_t* x, int n,
-                                         uint32_t ds) {
+// inputs at x (n inputs of either form).  State [ds, 0, 0]; per block of
+// two inputs, absorb, then permute; squeeze state[1].  An odd last block
+// absorbs one input: the TPU kernel's padded zero is a no-op on the
+// reduced state.
+template <typename E>
+__device__ __forceinline__ Fe sponge_row(const E* x, int n, uint32_t ds) {
   Vec<T> s = initial_state(ds);
   for (int i = 0; i < n; i += 2) {
     const bool two = i + 1 < n;
-    const Fe x0 = load(x + (int64_t)i * NL);
-    const Fe x1 = two ? load(x + (int64_t)(i + 1) * NL) : x0;
+    const Fe x0 = load_input(x + (int64_t)i * INPUT_WORDS<E>);
+    const Fe x1 = two ? load_input(x + (int64_t)(i + 1) * INPUT_WORDS<E>) : x0;
     absorb(s, x0, x1, two);
   }
   return s.e[1];
@@ -288,17 +302,17 @@ __device__ __forceinline__ void absorb_split(Fe& mine, const Fe& x, bool takes,
   permute_split(mine, sl);
 }
 
-// K1's body (sponge_row) in the element-split mapping; every lane returns
-// s[1].
-__device__ __forceinline__ Fe sponge_row_split(const uint32_t* x, int n,
-                                               uint32_t ds,
+// K1's body (sponge_row) in the element-split mapping, on either input
+// form; every lane returns s[1].
+template <typename E>
+__device__ __forceinline__ Fe sponge_row_split(const E* x, int n, uint32_t ds,
                                                const SplitLane& sl) {
   Fe mine = zero();
   if (sl.row == 0) mine.v[0] = ds;
   for (int i = 0; i < n; i += 2) {
     const int j = i + (int)sl.row - 1;  // lane 1 takes input i, lane 2 i + 1
     const bool takes = sl.row > 0 && j < n;
-    const Fe v = takes ? load(x + (int64_t)j * NL) : mine;
+    const Fe v = takes ? load_input(x + (int64_t)j * INPUT_WORDS<E>) : mine;
     absorb_split(mine, v, takes, sl);
   }
   return split_shfl(mine, 1);

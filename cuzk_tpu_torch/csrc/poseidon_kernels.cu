@@ -6,7 +6,8 @@
 // Tensors of field elements are 8 x u32 little-endian limbs per element,
 // held in torch.int32 tensors and reinterpreted as uint32_t here.
 //
-// sponge_kernel replaces cuzk_tpu/ops/poseidon_pallas.py::_sponge_kernel_dyn
+// sponge_kernel (on limbs) and sponge_digits_kernel (on the public digits)
+// replace cuzk_tpu/ops/poseidon_pallas.py::_sponge_kernel_dyn
 // (pallas_call at :488).  verify_kernel replaces ::_make_verify_kernel
 // (pallas_call at :385).  permutation_kernel replaces ::_permutation_kernel
 // (pallas_call at :795).  The TPU kernels stream [16, 8, 128] digit tiles
@@ -77,22 +78,45 @@ __device__ __forceinline__ bool owns_item(int64_t count) {
   return ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / W < count;
 }
 
-// K1: the width-dynamic sponge.  in [B, n, 8], out [B, 8]; thread or
-// group b hashes row b.
+// K1: the width-dynamic sponge.  in [B, n, W] inputs of either form
+// (poseidon.cuh::load_input), out [B, 8] limbs; thread or group b hashes
+// row b.  Offsets are int64: a Merkle level of 2^24 groups of 8 digit
+// inputs spans 2^31 int64 words.
+template <int G, typename E>
+__device__ __forceinline__ void sponge_item(const E* __restrict__ in,
+                                            uint32_t* __restrict__ out,
+                                            int64_t batch, int n, uint32_t ds) {
+  constexpr int W = group_width(G);
+  const int64_t b = group_item<W>(batch);
+  if (b < 0) return;
+  const E* row = in + b * n * INPUT_WORDS<E>;
+  Fe r;
+  if constexpr (G == SPLIT_LANES) {
+    r = sponge_row_split(row, n, ds, make_split_lane(warp_lane()));
+  } else {
+    r = sponge_row(row, n, ds);
+  }
+  if (warp_lane() % W == 0 && owns_item<W>(batch)) store(out + b * NL, r);
+}
+
+// On limbs: in [B, n, 8] u32.
 template <int G>
 __global__ void __launch_bounds__(SPONGE_THREADS, min_blocks(G))
     sponge_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                   int64_t batch, int n, uint32_t ds) {
-  constexpr int W = group_width(G);
-  const int64_t b = group_item<W>(batch);
-  if (b < 0) return;
-  Fe r;
-  if constexpr (G == SPLIT_LANES) {
-    r = sponge_row_split(in + b * n * NL, n, ds, make_split_lane(warp_lane()));
-  } else {
-    r = sponge_row(in + b * n * NL, n, ds);
-  }
-  if (warp_lane() % W == 0 && owns_item<W>(batch)) store(out + b * NL, r);
+  sponge_item<G>(in, out, batch, n, ds);
+}
+
+// On the public digits: in [B, n, 16] int64, each input read by value, so
+// a Merkle build's leaves go to the kernel as they are.  The digits are
+// four times the limbs' bytes, still under 1% of the permutations' time;
+// their loads make the kernel 1.4-1.8% slower than the limb form (PERF.md).
+template <int G>
+__global__ void __launch_bounds__(SPONGE_THREADS, min_blocks(G))
+    sponge_digits_kernel(const int64_t* __restrict__ in,
+                         uint32_t* __restrict__ out, int64_t batch, int n,
+                         uint32_t ds) {
+  sponge_item<G>(in, out, batch, n, ds);
 }
 
 // K3: fused per-proof verify.  pos [k, h], sib [k, h, a-1, 8], leaf [k, 8],
@@ -234,12 +258,30 @@ unsigned int blocks_for(int64_t n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
 }
 
-template <int G>
-int launch_sponge(const uint32_t* in, uint32_t* out, int64_t batch, int n,
+template <int G, typename E>
+int launch_sponge(const E* in, uint32_t* out, int64_t batch, int n,
                   uint32_t ds, cudaStream_t stream) {
-  sponge_kernel<G><<<blocks_for(batch * group_width(G), SPONGE_THREADS),
-                     SPONGE_THREADS, 0, stream>>>(in, out, batch, n, ds);
+  const unsigned int blocks = blocks_for(batch * group_width(G), SPONGE_THREADS);
+  if constexpr (sizeof(E) == sizeof(uint32_t)) {
+    sponge_kernel<G><<<blocks, SPONGE_THREADS, 0, stream>>>(in, out, batch, n, ds);
+  } else {
+    sponge_digits_kernel<G><<<blocks, SPONGE_THREADS, 0, stream>>>(in, out, batch,
+                                                                  n, ds);
+  }
   return (int)cudaGetLastError();
+}
+
+// lanes: G, 1 (one thread per state) or 3 (the state's elements split
+// across lanes); any other value is refused.
+template <typename E>
+int launch_sponge_lanes(const E* in, uint32_t* out, int64_t batch, int n,
+                        uint32_t ds, int lanes, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes) {
+    case 1: return launch_sponge<1>(in, out, batch, n, ds, s);
+    case SPLIT_LANES: return launch_sponge<SPLIT_LANES>(in, out, batch, n, ds, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int G>
@@ -275,16 +317,14 @@ const char* cuzk_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// lanes: G, 1 (one thread per state) or 3 (the state's elements split
-// across lanes); any other value is refused.
 int cuzk_sponge(const uint32_t* in, uint32_t* out, int64_t batch, int n,
                 uint32_t ds, int lanes, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes) {
-    case 1: return launch_sponge<1>(in, out, batch, n, ds, s);
-    case SPLIT_LANES: return launch_sponge<SPLIT_LANES>(in, out, batch, n, ds, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_sponge_lanes(in, out, batch, n, ds, lanes, stream);
+}
+
+int cuzk_sponge_digits(const int64_t* in, uint32_t* out, int64_t batch, int n,
+                       uint32_t ds, int lanes, void* stream) {
+  return launch_sponge_lanes(in, out, batch, n, ds, lanes, stream);
 }
 
 int cuzk_verify(const int32_t* pos, const uint32_t* sib, const uint32_t* leaf,

@@ -31,6 +31,9 @@ DIGIT_MASK = 0xFFFF
 NDIGITS_WIDE = 32
 NLIMBS = 8  # 8 x 32-bit limbs, the kernels' format
 DTYPE = torch.int64
+# The counters (utils.trace) of the rows that digits_to_limbs and
+# limbs_to_digits convert, while a profiler session records.
+ROW_COUNTERS = ("convert.rows.to_limbs", "convert.rows.to_digits")
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +125,9 @@ def digits_to_limbs(d) -> torch.Tensor:
     so a digit d + 2^16 means what it means to the JAX path's carrying add
     (a bit-pack would alias it to d)."""
     with trace.span("convert.to_limbs"):
-        return words_to_limbs(pack16(carry(as_digits(d))))
+        d = as_digits(d)
+        trace.count(ROW_COUNTERS[0], d.numel() // NDIGITS)
+        return words_to_limbs(pack16(carry(d)))
 
 
 def words_to_limbs(words) -> torch.Tensor:
@@ -140,6 +145,7 @@ def words_to_limbs(words) -> torch.Tensor:
 def limbs_to_digits(limbs: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`digits_to_limbs`: int32 limbs -> int64 digits."""
     with trace.span("convert.to_digits"):
+        trace.count(ROW_COUNTERS[1], limbs.numel() // NLIMBS)
         return unpack16(limbs)
 
 

@@ -154,18 +154,19 @@ def calculate_max_leaves(height: int, arity: int) -> int:
 
 def _build_levels_cuda(padded: torch.Tensor, arity: int,
                        trees: int = 1) -> List[torch.Tensor]:
-    """Level loop on the card: the leaves convert to limbs once, and each
-    level is one sponge launch over ``[g, arity, 8]`` limb groups.
-    ``padded`` holds ``trees`` equal trees side by side; the loop stops at
-    their roots."""
-    level = fr.digits_to_limbs(padded).contiguous()
+    """Level loop on the card, one sponge launch a level: the first reads
+    the leaves' ``[g, arity, 16]`` digit groups as they are (no copy of
+    contiguous leaves, no conversion), each above it the ``[g, arity, 8]``
+    limb groups of the level below.  ``padded`` holds ``trees`` equal trees
+    side by side; the loop stops at their roots."""
     levels = [padded]
+    level, width = padded.contiguous(), fr.NDIGITS
+    sponge = poseidon_cuda.sponge_digits
     while level.shape[0] > trees:
         g = level.shape[0] // arity
-        level = poseidon_cuda.sponge_limbs(
-            level.view(g, arity, fr.NLIMBS), poseidon.DS_MULTIPLE
-        )
+        level = sponge(level.view(g, arity, width), poseidon.DS_MULTIPLE)
         levels.append(fr.limbs_to_digits(level))
+        sponge, width = poseidon_cuda.sponge_limbs, fr.NLIMBS
     return levels
 
 

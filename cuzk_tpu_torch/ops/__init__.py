@@ -25,6 +25,7 @@ from cuzk_tpu_torch.ops.poseidon_cuda import (
     permutation_limbs,
     reset_launch_counts,
     resident_states,
+    sponge_digits,
     sponge_limbs,
     sponge_resident_threads,
     verify_limbs,
@@ -49,6 +50,7 @@ __all__ = [
     "permutation_limbs",
     "reset_launch_counts",
     "resident_states",
+    "sponge_digits",
     "sponge_limbs",
     "sponge_resident_threads",
     "verify_limbs",

@@ -109,6 +109,7 @@ class Kernels:
         signatures = {
             "cuzk_set_round_constants": [p],
             "cuzk_sponge": [p, p, i64, i32, u32, i32, p],
+            "cuzk_sponge_digits": [p, p, i64, i32, u32, i32, p],
             "cuzk_permutation": [p, p, i64, p],
             "cuzk_resident_states": [i32, i32, ctypes.POINTER(ctypes.c_int)],
             "cuzk_verify": [p, p, p, p, p, i64, i32, i32, i32, p],

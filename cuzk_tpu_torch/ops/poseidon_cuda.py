@@ -11,10 +11,11 @@ does, and runs where its tensors lie:
   (``cuzk_tpu_torch.poseidon``): the CPU runs only when asked for;
 - on any other device it builds the kernels (at the first call), checks
   device, dtype, shape and contiguity, launches on PyTorch's current
-  stream and raises on a launch error.  K1 and K3 take limbs, so their
-  entry points convert digits to limbs first; K4 and the per-op check
-  kernel read and write the digits themselves.  There is no
-  fallback: without a Hopper card, or when the build fails, it raises.
+  stream and raises on a launch error.  K1 reads digits itself
+  (:func:`sponge_digits`) and returns limbs; K3 takes limbs, so its entry
+  points convert digits to limbs first; K4 and the per-op check kernel
+  read and write the digits themselves.  There is no fallback: without a
+  Hopper card, or when the build fails, it raises.
 
 K1 and K3 run G lanes of a warp per state: one thread per state (G = 1),
 on the permutation body K4 runs, or three lanes holding one state element
@@ -29,9 +30,12 @@ so none of it is here.
 
 The ``*_limbs`` launchers take 8 x u32 limb tensors on the card and run on
 no other device; :mod:`cuzk_tpu_torch.merkle` calls them for the tree
-build (K1) and proof verification (K3), after its own device dispatch, and
-``permutation_limbs`` and ``fr_op_limbs`` serve limb-resident callers and
-time the arithmetic alone.
+build's upper levels (K1) and proof verification (K3), after its own
+device dispatch, and ``permutation_limbs`` and ``fr_op_limbs`` serve
+limb-resident callers and time the arithmetic alone.
+:func:`sponge_digits` is K1 on ``[B, n, 16]`` int64 digits, read by value
+in the kernel: the first level of a build and every digit entry point
+(``hash_*_cuda``) go through it, so no leaf is converted.
 
 The ``*_packed`` entry points take ``fr.pack16`` words, two digits per u32
 word: on the card those words are K1's limbs as they stand, so they go to
@@ -41,7 +45,8 @@ the kernel with no digit round trip.
 which kernels its main path went through.  K1 and K3's launchers are the
 spans ``cuzk.k1`` and ``cuzk.k3`` (:mod:`cuzk_tpu_torch.utils.trace`), and
 count each launch under the G it took, ``k1.lanes.<G>`` and
-``k3.lanes.<G>``, while a profiler session records.
+``k3.lanes.<G>``, while a profiler session records; a launch of K1's
+digit form also counts ``k1.input.digits``.
 """
 
 from __future__ import annotations
@@ -89,11 +94,13 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _check_limbs(t: torch.Tensor, name: str, ndim: int) -> None:
+def _check_limbs(t: torch.Tensor, name: str, ndim: int,
+                 dtype: torch.dtype = torch.int32) -> None:
     if not t.is_cuda:
         raise ValidationError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValidationError(f"{name} must be int32 limbs, got {t.dtype}")
+    if t.dtype != dtype:
+        form = "int32 limbs" if dtype == torch.int32 else "int64 digits"
+        raise ValidationError(f"{name} must be {form}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValidationError(f"{name} must have {ndim} dims, got {t.shape}")
     if not t.is_contiguous():
@@ -180,33 +187,52 @@ def _lanes(lanes, batch: int, device: torch.device, kernel: str) -> int:
 # K1: the sponge
 # ---------------------------------------------------------------------------
 
-def sponge_limbs(x: torch.Tensor, ds: int, lanes=None) -> torch.Tensor:
-    """K1 on limbs: ``x [B, n, 8]`` int32 on the card -> ``[B, 8]`` int32,
-    the sponge with domain separator ``ds`` over each row's n inputs.
-    ``lanes`` forces G (one of :data:`LANES`); by default
-    :func:`choose_lanes` picks it."""
+def _k1(x: torch.Tensor, ds: int, lanes, digits: bool) -> torch.Tensor:
+    """K1 on ``x [B, n, 8]`` int32 limbs or ``[B, n, 16]`` int64 digits ->
+    ``[B, 8]`` int32 limbs."""
     with trace.span("k1"):
         kernels = _build.kernels()
-        _check_limbs(x, "inputs", 3)
-        b, n, nl = x.shape
-        if nl != NL:
+        dtype, width = (torch.int64, ND) if digits else (torch.int32, NL)
+        _check_limbs(x, "inputs", 3, dtype)
+        b, n, w = x.shape
+        if w != width:
             raise ValidationError(
-                f"inputs must be [B, n, {NL}] limbs, got {x.shape}")
+                f"inputs must be [B, n, {width}] words, got {x.shape}")
         out = torch.empty((b, NL), dtype=torch.int32, device=x.device)
         if b == 0 or n == 0:
             # The empty input returns 0 with no permutation (SURVEY.md B.4).
             return out.zero_()
         g = _lanes(lanes, b, x.device, "sponge")
-        _launch(kernels, kernels.lib.cuzk_sponge, x.device,
-                x.data_ptr(), out.data_ptr(), b, n, ds, g)
+        entry = kernels.lib.cuzk_sponge_digits if digits else kernels.lib.cuzk_sponge
+        _launch(kernels, entry, x.device, x.data_ptr(), out.data_ptr(), b, n,
+                ds, g)
         launch_counts["sponge"] += 1
         trace.count(f"k1.lanes.{g}")
+        if digits:
+            trace.count("k1.input.digits")
         return out
+
+
+def sponge_limbs(x: torch.Tensor, ds: int, lanes=None) -> torch.Tensor:
+    """K1 on limbs: ``x [B, n, 8]`` int32 on the card -> ``[B, 8]`` int32,
+    the sponge with domain separator ``ds`` over each row's n inputs.
+    ``lanes`` forces G (one of :data:`LANES`); by default
+    :func:`choose_lanes` picks it."""
+    return _k1(x, ds, lanes, digits=False)
+
+
+def sponge_digits(x: torch.Tensor, ds: int, lanes=None) -> torch.Tensor:
+    """K1 on digits: ``x [B, n, 16]`` int64 on the card -> ``[B, 8]`` int32
+    limbs, equal to ``sponge_limbs(fr.digits_to_limbs(x), ds)``: the kernel
+    reads each input by value, as :func:`fr.digits_to_limbs` does, so a
+    digit d + 2^16 keeps its meaning and nothing is converted before the
+    launch.  ``lanes`` as in :func:`sponge_limbs`."""
+    return _k1(x, ds, lanes, digits=True)
 
 
 def _sponge(inputs, ds: int) -> torch.Tensor:
     """``[..., n, 16]`` digits -> ``[..., 16]``: the plain sponge on the CPU,
-    K1 elsewhere."""
+    K1 on the digits elsewhere."""
     if inputs.device.type == "cpu":
         return poseidon.sponge(inputs, ds)
     _build.kernels()
@@ -214,8 +240,7 @@ def _sponge(inputs, ds: int) -> torch.Tensor:
     if n == 0:
         # The empty input returns 0 with no permutation (SURVEY.md B.4).
         return fr.zeros(batch, device=inputs.device)
-    limbs = fr.digits_to_limbs(inputs.reshape((-1, n, ND))).contiguous()
-    out = sponge_limbs(limbs, ds)
+    out = sponge_digits(inputs.reshape((-1, n, ND)).contiguous(), ds)
     return fr.limbs_to_digits(out).reshape(batch + (ND,))
 
 

@@ -641,3 +641,69 @@ def test_traced_build_and_verify_count_their_launches(cuda_device):
     assert t["counters"]["launch.sponge"] == 0
     assert t["counters"]["verify.route.card"] == 1
     assert t["wait_s"] > 0
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("arity", [2, 4, 8])
+def test_sponge_digits_equals_the_conversion_then_sponge_limbs(arity, lanes,
+                                                               cuda_device):
+    """K1's digit form against ``fr.digits_to_limbs`` then K1's limb form,
+    bit for bit, at batches below and above a block and one of 65,536
+    rows, with digits d + 2^16 and 2^32 + d and a top digit of 2^40 - 1
+    read by value."""
+    rng = np.random.default_rng(520 + arity)
+    g = digits(rng, (65_536, arity), cuda_device)
+    g[::7, arity - 1, 3] += 1 << 16
+    g[1::11, 0, 0] += 1 << 32
+    g[2::13, arity - 1, 15] = (1 << 40) - 1
+    want = poseidon_cuda.sponge_limbs(fr.digits_to_limbs(g).contiguous(), 3,
+                                      lanes=lanes)
+    for k in (1, 31, 130, 65_536):
+        got = poseidon_cuda.sponge_digits(g[:k], 3, lanes=lanes)
+        assert torch.equal(got, want[:k]), k
+    assert torch.equal(fr.limbs_to_digits(want[:256]),
+                       poseidon.hash_multiple(g[:256]))
+
+
+def test_sector_base_trees_build_on_the_card(cuda_device):
+    """The sector configuration's share of a card (zkbench/configs/
+    filecoin-32g-rlast.json: two base trees of 8^9 = 2^27 leaves at arity 8,
+    34.4 GB of digits) side by side, one K1 launch a level over both: at
+    every level the first and last rows and 64 rows drawn from the seed
+    equal the benchmark reference's hash of their 8 children.  Level 1's
+    last row reads digits 2^32 - 128 .. 2^32 - 1 of its launch's input,
+    past any 32-bit index.  Then the second tree alone through
+    ``build_tree_levels`` gives the same levels; its peak memory is
+    printed."""
+    from zkbench.reference import field as ref_field
+    from zkbench.reference.poseidon import Poseidon
+
+    arity, n, trees = 8, 8 ** 9, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(3_300_000_015)
+    leaves = torch.randint(0, 1 << 16, (trees * n, 16), generator=gen,
+                           device=cuda_device, dtype=torch.int64)
+    leaves[:, 15] &= 0x2FFF  # canonical: below p's top digit 0x3064
+    assert leaves.numel() == 1 << 32
+    levels = merkle._build_levels(leaves, arity, trees=trees)
+    assert [lv.shape[0] for lv in levels] == [trees * 8 ** (9 - i)
+                                              for i in range(10)]
+    ref = Poseidon(ref_field.Field(cuda_device))
+    rng = np.random.default_rng(521)
+    for level in range(1, 10):
+        m = levels[level].shape[0]
+        rows = np.unique(np.concatenate([[0, m - 1], rng.integers(0, m, 64)]))
+        rows_t = torch.as_tensor(rows, device=cuda_device)
+        cols = rows_t[:, None] * arity + torch.arange(arity, device=cuda_device)
+        want = ref.hash_multiple(levels[level - 1][cols])
+        assert torch.equal(levels[level][rows_t], want), level
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    alone = merkle.build_tree_levels(leaves[n:], arity)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device)
+    for level in range(10):
+        assert torch.equal(alone[level], levels[level][levels[level].shape[0]
+                                                      // trees:]), level
+    print(f"\nsector base trees: peak {peak} bytes building one 2^27-leaf "
+          f"tree beside {leaves.numel() * 8} bytes of leaves and both trees' "
+          f"levels")

@@ -53,13 +53,16 @@ template <typename F> void run_split(F f) {
   for (int l = 0; l < SPLIT_WIDTH; l++) ts.emplace_back([&, l] { emu_lane = l; emu_phase = 0; f(l); });
   for (auto& t : ts) t.join();
 }
+template <typename E> void sponge_rows(const E* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) {
+  const int64_t w = INPUT_WORDS<E>;
+  if (G == 1) { for (int64_t b = 0; b < batch; b++) store(out + b * NL, sponge_row(in + b * n * w, n, ds)); return; }
+  run_split([&](int l) { for (int64_t b = 0; b < batch; b++) { SplitLane sl = make_split_lane(l);
+    Fe r = sponge_row_split(in + b * n * w, n, ds, sl); if (l == 0) store(out + b * NL, r); } });
+}
 extern "C" {
 void h_set_rc(const uint32_t* rc) { memcpy(ROUND_CONSTANTS, rc, sizeof(ROUND_CONSTANTS)); }
-void h_sponge(const uint32_t* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) {
-  if (G == 1) { for (int64_t b = 0; b < batch; b++) store(out + b * NL, sponge_row(in + b * n * NL, n, ds)); return; }
-  run_split([&](int l) { for (int64_t b = 0; b < batch; b++) { SplitLane sl = make_split_lane(l);
-    Fe r = sponge_row_split(in + b * n * NL, n, ds, sl); if (l == 0) store(out + b * NL, r); } });
-}
+void h_sponge(const uint32_t* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) { sponge_rows(in, out, batch, n, ds, G); }
+void h_sponge_digits(const int64_t* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) { sponge_rows(in, out, batch, n, ds, G); }
 void h_verify(const int32_t* pos, const uint32_t* sib, const uint32_t* leaf, const uint32_t* root, uint8_t* ok, int64_t k, int h, int arity, int G) {
   if (G == 1) { for (int64_t t = 0; t < k; t++) ok[t] = verify_proof(pos + t * h, sib + t * h * (int64_t)(arity - 1) * NL, leaf + t * NL, root, h, arity); return; }
   run_split([&](int l) { for (int64_t t = 0; t < k; t++) { SplitLane sl = make_split_lane(l);
@@ -117,6 +120,7 @@ def host_kernels(tmp_path_factory):
     p, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
     h.h_set_rc.argtypes = [p]
     h.h_sponge.argtypes = [p, p, i64, i32, u32, i32]
+    h.h_sponge_digits.argtypes = [p, p, i64, i32, u32, i32]
     h.h_verify.argtypes = [p, p, p, p, p, i64, i32, i32, i32]
     h.h_perm.argtypes = [p, p, i64]
     h.h_fr_op.argtypes = [i32, p, p, u32, p, i64]
@@ -302,6 +306,42 @@ def run_k1(host_kernels, g, lanes):
     out = np.zeros((b, 8), np.uint32)
     host_kernels.h_sponge(x.ctypes.data, out.ctypes.data, b, n, 3, lanes)
     return digits_of(out)
+
+
+def run_k1_digits(host_kernels, g, lanes):
+    """K1's body under ``lanes`` on its digit form: ``[B, n, 16]`` int64
+    rows read by value, ds = 3."""
+    b, n = g.shape[:2]
+    x = np.ascontiguousarray(g.numpy().astype(np.int64))
+    out = np.zeros((b, 8), np.uint32)
+    host_kernels.h_sponge_digits(x.ctypes.data, out.ctypes.data, b, n, 3,
+                                 lanes)
+    return digits_of(out)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("arity", [2, 8])
+def test_digit_input_sponge_body_equals_the_limb_body(arity, lanes,
+                                                      host_kernels):
+    """K1's digit form (each input read by value, as fr.digits_to_limbs
+    reads it) against its limb form and the plain sponge, on arity-2 and
+    arity-8 rows: random and edge elements, digits d + 2^16 and 2^32 + d
+    (neither may alias to d), and the top digit at 0xFFFF and at 2^40 - 1,
+    the end of the range fr.carry is exact in (the value wraps at
+    2^256)."""
+    rng = np.random.default_rng(75 + arity)
+    edges = [0, 1, constants.P - 1, constants.P, (1 << 256) - 1]
+    g = torch.cat([
+        fr.ints_to_array([edges[(r + i) % 5] for r in range(2)
+                          for i in range(arity)]).reshape(2, arity, 16),
+        rnd(rng, (4, arity))])
+    g[2, arity - 1, 3] += 1 << 16
+    g[3, 0, 0] += 1 << 32
+    g[4, 0, 15] = 0xFFFF
+    g[5, arity - 1, 15] = (1 << 40) - 1
+    got = run_k1_digits(host_kernels, g, lanes)
+    assert torch.equal(got, run_k1(host_kernels, g, lanes))
+    assert torch.equal(got, poseidon.hash_multiple(g))
 
 
 def run_k3(host_kernels, pos, sib, leaves, root, arity, lanes):

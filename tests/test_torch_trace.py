@@ -171,7 +171,8 @@ def _fake_launches(monkeypatch):
     record their counters.  A card holds 84,480 states at G = 1."""
     monkeypatch.setattr(poseidon_cuda._build, "kernels",
                         lambda: types.SimpleNamespace(lib=types.SimpleNamespace(
-                            cuzk_sponge=None, cuzk_verify=None)))
+                            cuzk_sponge=None, cuzk_sponge_digits=None,
+                            cuzk_verify=None)))
     monkeypatch.setattr(poseidon_cuda, "_check_limbs", lambda *a: None)
     monkeypatch.setattr(poseidon_cuda, "_launch", lambda *a: None)
     monkeypatch.setattr(poseidon_cuda, "resident_states", lambda *a: 84_480)
@@ -214,6 +215,65 @@ def test_launches_metric_reads_the_same_launches_beside_the_lanes_counters(
     assert launches.read(types.SimpleNamespace(requests=2)) == 4.0
 
 
+def test_digit_form_launches_count_beside_their_lanes(monkeypatch):
+    """K1's digit form counts ``k1.input.digits`` a launch beside its G and
+    its ``launch.sponge``; the limb form does not count it."""
+    _fake_launches(monkeypatch)
+    i64 = torch.int64
+    with session():
+        with trace.span("root"):
+            poseidon_cuda.sponge_digits(torch.zeros((64, 8, 16), dtype=i64), 3)
+            poseidon_cuda.sponge_digits(
+                torch.zeros((65_536, 2, 16), dtype=i64), 3)
+            poseidon_cuda.sponge_limbs(
+                torch.zeros((64, 2, 8), dtype=torch.int32), 2)
+    c = trace.totals()["counters"]
+    assert c["k1.input.digits"] == 2
+    assert c["k1.lanes.3"] == 2 and c["k1.lanes.1"] == 1
+    assert c["launch.sponge"] == 3
+
+
+def test_conversions_count_their_rows_only_while_recording():
+    from cuzk_tpu_torch.field import fr
+
+    d = torch.zeros((3, 5, 16), dtype=torch.int64)
+    before = trace.totals()
+    fr.limbs_to_digits(fr.digits_to_limbs(d))
+    assert trace.totals() == before
+    with session():
+        limbs = fr.digits_to_limbs(d)
+        fr.limbs_to_digits(limbs[:2])
+        fr.digits_to_limbs(d[0, 0])
+    c = trace.totals()["counters"]
+    assert fr.ROW_COUNTERS == ("convert.rows.to_limbs", "convert.rows.to_digits")
+    assert c["convert.rows.to_limbs"] == 16 and c["convert.rows.to_digits"] == 10
+
+
+def test_converted_rows_metric_reads_the_counters_a_request_and_row(
+        monkeypatch):
+    """40 rows converted a request of 160 rows is 25%; no rows of work, no
+    root span, or a program that names no row counters (the port before
+    it counted them) reads None."""
+    from cuzk_tpu_torch.field import fr
+    from zkbench.metrics import converted_rows
+
+    with session():
+        for _ in range(2):
+            with trace.span("root"):
+                trace.count("convert.rows.to_digits", 30)
+                trace.count("convert.rows.to_limbs", 10)
+                trace.count("k1.input.digits")
+    view = types.SimpleNamespace(requests=2, work={"rows": 160})
+    assert converted_rows.read(view) == 25.0
+    assert converted_rows.read(types.SimpleNamespace(requests=2, work={})) is None
+    monkeypatch.delattr(fr, "ROW_COUNTERS")
+    assert converted_rows.read(view) is None
+    monkeypatch.undo()
+    with session():
+        trace.count("convert.rows.to_digits", 30)
+    assert converted_rows.read(view) is None
+
+
 def _tree():
     g = torch.Generator().manual_seed(5)
     leaves = torch.randint(0, 1 << 16, (40, 16), generator=g)
@@ -254,7 +314,8 @@ def test_verify_each_is_one_root_span_and_one_route(dedupe, route):
 
 CELLS = {"semaphore-d20.commit": "commit",
          "cuzk-a4-50k.commit": "small_commit",
-         "cuzk-a4-50k.verify": "verify"}
+         "cuzk-a4-50k.verify": "verify",
+         "filecoin-32g-rlast.commit": "commit"}
 
 
 @pytest.mark.parametrize("name", sorted(CELLS))
@@ -275,3 +336,6 @@ def test_a_traced_tiny_cell_reads_the_ports_host_time(name, tmp_path):
         listed = {m["name"] for m in json.load(fh)["per_layer"]
                   if name in m.get("workloads", [])}
     assert {f"host_ms.{suffix}", f"launches.{suffix}"} <= listed
+    # Nor does it convert digits to limbs or back.
+    if f"converted_rows.{suffix}" in listed:
+        assert r["metrics"][f"converted_rows.{suffix}"]["value"] == 0
