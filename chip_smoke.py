@@ -169,13 +169,14 @@ SHARDED_RANKS = (1, 4)
 TAMPERED_1M = (17, 1234, 4321)  # leaf, sibling, position
 
 
-# K1's (in both input forms) and K3's registers as they compile with nvcc
+# K1's and K3's registers (each in both input forms) as they compile with nvcc
 # 12.9 for sm_90a: at G = 1 the one-thread core K4 runs (78 registers in
 # K4), at G = 3 the element split.
 K1_K3_PTXAS = {
     "sponge_kernel<1>": 80, "sponge_kernel<3>": 72,
     "sponge_digits_kernel<1>": 80, "sponge_digits_kernel<3>": 72,
     "verify_kernel<1>": 88, "verify_kernel<3>": 80,
+    "verify_digits_kernel<1>": 88, "verify_digits_kernel<3>": 80,
 }
 # Phase 7's K4 sweep (states a launch) and the batch field op's shapes:
 # phase 2's operand count and one launch that fills the card many times.
@@ -449,6 +450,8 @@ def sharded_phase(dev, name_power, bound):
     for g in pc.LANES:
         k3_err = max(k3_err, max_abs_err(
             pc.verify_limbs(*limbs, ARITY_1M, lanes=g), plain_ok))
+        k3_err = max(k3_err, max_abs_err(
+            pc.verify_digits(p, s, l, root, ARITY_1M, lanes=g), plain_ok))
     check(k3_err == 0, "K3 disagrees with the plain verify on the 1M proofs")
     want_verdicts = digest(plain_ok.to(torch.uint8))
     verify_1m_ms = cuda_time_ms(
@@ -458,8 +461,8 @@ def sharded_phase(dev, name_power, bound):
         want_pos.numel() * 4 + (want_sib.numel() + proved.numel()) * 2 + 32
         + PROOFS_1M)
     print(f"phase 15 verify: {PROOFS_1M} proofs x {h_1m} levels arity 8, "
-          f"{TAMPERED_1M} tampered (leaf, sibling, position), K3 = plain "
-          f"at every G {list(pc.LANES)}; K3 {verify_1m_ms:.3f} ms (bound "
+          f"{TAMPERED_1M} tampered (leaf, sibling, position), K3 (limbs and "
+          f"digits) = plain at every G {list(pc.LANES)}; K3 {verify_1m_ms:.3f} ms (bound "
           f"{k3_bound_ms:.3f} ms, share {k3_bound_ms / verify_1m_ms:.3f}; "
           f"plain {verify_1m_plain_ms:.3f} ms) on {name_power}", flush=True)
 
@@ -736,7 +739,7 @@ def main() -> None:
         rec = kernels.ptxas[name]
         print(f"phase 1 ptxas {name}: {rec}", flush=True)
         if name.startswith(("sponge_kernel", "sponge_digits_kernel",
-                            "verify_kernel")):
+                            "verify_kernel", "verify_digits_kernel")):
             check(rec.get("stack_frame") == 0 and rec.get("spill_stores") == 0
                   and rec.get("spill_loads") == 0,
                   f"{name} uses local memory: {rec}")
@@ -992,6 +995,13 @@ def main() -> None:
     for g in pc.LANES:
         k3_err = max(k3_err, max_abs_err(pc.verify_limbs(*limbs5k, arity, lanes=g),
                                          plain_ok))
+        k3_err = max(k3_err, max_abs_err(pc.verify_digits(
+            pos, tampered_sib, tampered_leaves, root, arity, lanes=g), plain_ok))
+    # K3 alone in its two forms at the automatic G, on the same proofs.
+    k3_limbs_ms = cuda_time_ms(
+        lambda: pc.verify_limbs(*limbs5k, arity, lanes=k3_lanes))
+    k3_digits_ms = cuda_time_ms(lambda: pc.verify_digits(
+        pos, tampered_sib, tampered_leaves, root, arity, lanes=k3_lanes))
     k3_edges = sorted({1, 31, 33, 517} | {g + d for g in pc.LANES
                                          for d in (-1, 1) if g + d > 0})
     for a_ in (2, 3, 4, 8):
@@ -1014,12 +1024,17 @@ def main() -> None:
                 got = pc.verify_limbs(*(t[:size] for t in args[:3]), args[3],
                                       a_, lanes=g)
                 k3_err = max(k3_err, max_abs_err(got, want[:size]))
+                got = pc.verify_digits(pe[:size], se[:size], le[:size],
+                                       small_tree[-1][0], a_, lanes=g)
+                k3_err = max(k3_err, max_abs_err(got, want[:size]))
         check(bool(want.any()) and not bool(want.all()), "K3 edge batch mixes")
     check(k3_err == 0, "K3 disagrees with the plain verify")
     print(f"phase 6 verify: 5,000 proofs all true, tampered 10/20/30 false, "
-          f"K3 = plain at every G {list(pc.LANES)} (auto G = {k3_lanes}) and "
-          f"at batches {k3_edges} over arities 2, 3, 4, 8; warm verify "
-          f"{verify_ms:.3f} ms on {name_power}", flush=True)
+          f"K3 (limbs and digits) = plain at every G {list(pc.LANES)} (auto "
+          f"G = {k3_lanes}) and at batches {k3_edges} over arities 2, 3, 4, "
+          f"8; warm verify {verify_ms:.3f} ms; K3 alone at G = {k3_lanes} "
+          f"{k3_limbs_ms:.4f} ms on limbs, {k3_digits_ms:.4f} ms on digits, "
+          f"on {name_power}", flush=True)
     # The 50K build's K1 launches, one per level, each timed alone.
     build_k1_ms = 0.0
     for lv in tree.levels[:-1]:

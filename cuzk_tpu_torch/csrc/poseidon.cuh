@@ -133,9 +133,9 @@ __device__ __forceinline__ void absorb(Vec<T>& s, const Fe& x0, const Fe& x1,
   permute(s);
 }
 
-// K1's two input forms: an input is 8 u32 limbs, or 16 int64 digits read
-// by value (fr254.cuh::load_digits, as fr.digits_to_limbs reads them), so
-// that a caller holding digits converts nothing before the launch.
+// K1's and K3's two input forms: an input is 8 u32 limbs, or 16 int64
+// digits read by value (fr254.cuh::load_digits, as fr.digits_to_limbs reads
+// them), so that a caller holding digits converts nothing before the launch.
 // INPUT_WORDS<E> is an input's width in words of its form.
 template <typename E>
 constexpr int INPUT_WORDS = sizeof(E) == sizeof(uint32_t) ? NL : 2 * NL;
@@ -163,27 +163,57 @@ __device__ __forceinline__ Fe sponge_row(const E* x, int n, uint32_t ds) {
   return s.e[1];
 }
 
-// K3's body: one proof.  pos [h], sib [h, a-1, 8], leaf [8], root [8].
-// Per level, slot j of the arity group holds the current digest when
-// j == pos, else sibling j - (j > pos) clamped to [0, a-2]
+// K3's two root forms, compared with the recomputed digest cur: 8 u32 limbs
+// word by word; or 16 int64 digits digit by digit, digit 2i against
+// cur.v[i] & 0xffff and digit 2i + 1 against cur.v[i] >> 16.  The digest's
+// digits are canonical, so a root digit outside [0, 2^16) never matches,
+// even where the root's value equals the digest (the plain path's
+// (current == root).all(); ROADMAP trap (f)).
+__device__ __forceinline__ bool root_matches(const Fe& cur, const uint32_t* root) {
+  uint32_t diff = 0;
+  FR254_UNROLL
+  for (int i = 0; i < NL; i++) diff |= cur.v[i] ^ root[i];
+  return diff == 0;
+}
+
+__device__ __forceinline__ bool root_matches(const Fe& cur, const int64_t* root) {
+  uint64_t diff = 0;
+  FR254_UNROLL
+  for (int i = 0; i < NL; i++) {
+    diff |= (uint64_t)(root[2 * i] ^ (int64_t)(cur.v[i] & 0xffffu));
+    diff |= (uint64_t)(root[2 * i + 1] ^ (int64_t)(cur.v[i] >> 16));
+  }
+  return diff == 0;
+}
+
+// A position clamped to [-1, arity]: every position outside [0, arity)
+// builds the same group as -1 or arity.
+__device__ __forceinline__ int clamp_position(int p, int arity) {
+  return p < -1 ? -1 : (p > arity ? arity : p);
+}
+
+// K3's body: one proof.  pos [h], sib [h, a-1, W], leaf [W], root [W], in
+// either input form (W = INPUT_WORDS<E>; digits read by value through
+// load_input).  Per level, slot j of the arity group holds the current
+// digest when j == pos, else sibling j - (j > pos) clamped to [0, a-2]
 // (cuzk_tpu_torch/merkle.py::_insert_at_position, so an out-of-range pos
 // drops the digest exactly as the JAX path does); then a ds=3 sponge over
 // the group.  The running digest never leaves registers.
-__device__ __forceinline__ bool verify_proof(const int32_t* pos,
-                                             const uint32_t* sib,
-                                             const uint32_t* leaf,
-                                             const uint32_t* root, int h,
-                                             int arity) {
+template <typename E>
+__device__ __forceinline__ bool verify_proof(const int32_t* pos, const E* sib,
+                                             const E* leaf, const E* root,
+                                             int h, int arity) {
   constexpr uint32_t DS_MULTIPLE = 3;
-  Fe cur = load(leaf);
+  constexpr int W = INPUT_WORDS<E>;
+  Fe cur = load_input(leaf);
   for (int lvl = 0; lvl < h; lvl++) {
-    const int p = pos[lvl];
-    const uint32_t* sb = sib + (int64_t)lvl * (arity - 1) * NL;
+    const int p = clamp_position(pos[lvl], arity);
+    const E* sb = sib + (int64_t)lvl * (arity - 1) * W;
     auto slot = [&](int j) {
       if (j == p) return cur;
       int q = j - (j > p ? 1 : 0);
       q = q < 0 ? 0 : (q > arity - 2 ? arity - 2 : q);
-      return load(sb + q * NL);
+      return load_input(sb + q * W);
     };
     Vec<T> s = initial_state(DS_MULTIPLE);
     for (int j = 0; j < arity; j += 2) {
@@ -193,10 +223,7 @@ __device__ __forceinline__ bool verify_proof(const int32_t* pos,
     }
     cur = s.e[1];
   }
-  uint32_t diff = 0;
-  FR254_UNROLL
-  for (int i = 0; i < NL; i++) diff |= cur.v[i] ^ root[i];
-  return diff == 0;
+  return root_matches(cur, root);
 }
 
 // ---------------------------------------------------------------------------
@@ -318,18 +345,20 @@ __device__ __forceinline__ Fe sponge_row_split(const E* x, int n, uint32_t ds,
   return split_shfl(mine, 1);
 }
 
-// K3's body (verify_proof) in the element-split mapping.
+// K3's body (verify_proof) in the element-split mapping, on either input
+// form.
+template <typename E>
 __device__ __forceinline__ bool verify_proof_split(const int32_t* pos,
-                                                   const uint32_t* sib,
-                                                   const uint32_t* leaf,
-                                                   const uint32_t* root, int h,
+                                                   const E* sib, const E* leaf,
+                                                   const E* root, int h,
                                                    int arity,
                                                    const SplitLane& sl) {
   constexpr uint32_t DS_MULTIPLE = 3;
-  Fe cur = load(leaf);
+  constexpr int W = INPUT_WORDS<E>;
+  Fe cur = load_input(leaf);
   for (int lvl = 0; lvl < h; lvl++) {
-    const int p = pos[lvl];
-    const uint32_t* sb = sib + (int64_t)lvl * (arity - 1) * NL;
+    const int p = clamp_position(pos[lvl], arity);
+    const E* sb = sib + (int64_t)lvl * (arity - 1) * W;
     Fe mine = zero();
     if (sl.row == 0) mine.v[0] = DS_MULTIPLE;
     for (int j0 = 0; j0 < arity; j0 += 2) {
@@ -339,16 +368,13 @@ __device__ __forceinline__ bool verify_proof_split(const int32_t* pos,
       if (takes && j != p) {
         int q = j - (j > p ? 1 : 0);
         q = q < 0 ? 0 : (q > arity - 2 ? arity - 2 : q);
-        v = load(sb + q * NL);
+        v = load_input(sb + q * W);
       }
       absorb_split(mine, v, takes, sl);
     }
     cur = split_shfl(mine, 1);
   }
-  uint32_t diff = 0;
-  FR254_UNROLL
-  for (int i = 0; i < NL; i++) diff |= cur.v[i] ^ root[i];
-  return diff == 0;
+  return root_matches(cur, root);
 }
 
 }  // namespace fr254

@@ -8,12 +8,13 @@
 //
 // sponge_kernel (on limbs) and sponge_digits_kernel (on the public digits)
 // replace cuzk_tpu/ops/poseidon_pallas.py::_sponge_kernel_dyn
-// (pallas_call at :488).  verify_kernel replaces ::_make_verify_kernel
-// (pallas_call at :385).  permutation_kernel replaces ::_permutation_kernel
-// (pallas_call at :795).  The TPU kernels stream [16, 8, 128] digit tiles
-// through VMEM and run a grid in order on one core; here blocks run in any
-// order and a thread, or a group of lanes (poseidon.cuh), owns one hash, one
-// proof or one state with the state in registers.
+// (pallas_call at :488).  verify_kernel and verify_digits_kernel (the same
+// two forms) replace ::_make_verify_kernel (pallas_call at :385).
+// permutation_kernel replaces ::_permutation_kernel (pallas_call at :795).
+// The TPU kernels stream [16, 8, 128] digit tiles through VMEM and run a
+// grid in order on one core; here blocks run in any order and a thread, or
+// a group of lanes (poseidon.cuh), owns one hash, one proof or one state
+// with the state in registers.
 //
 // What bounds them: integer multiplies, about 88K 32-bit multiply results
 // a permutation (44,096 limb products), against 32 bytes read per absorbed
@@ -119,8 +120,34 @@ __global__ void __launch_bounds__(SPONGE_THREADS, min_blocks(G))
   sponge_item<G>(in, out, batch, n, ds);
 }
 
-// K3: fused per-proof verify.  pos [k, h], sib [k, h, a-1, 8], leaf [k, 8],
-// root [8] -> ok [k]; thread or group t verifies proof t.
+// K3: fused per-proof verify.  pos [k, h] int32, sib [k, h, a-1, W],
+// leaf [k, W], root [W] in either input form (poseidon.cuh::load_input) ->
+// ok [k], one byte a verdict (a torch.bool tensor); thread or group t
+// verifies proof t.  Offsets are int64.
+template <int G, typename E>
+__device__ __forceinline__ void verify_item(const int32_t* __restrict__ pos,
+                                            const E* __restrict__ sib,
+                                            const E* __restrict__ leaf,
+                                            const E* __restrict__ root,
+                                            uint8_t* __restrict__ ok, int64_t k,
+                                            int h, int arity) {
+  constexpr int W = group_width(G);
+  constexpr int NW = INPUT_WORDS<E>;
+  const int64_t t = group_item<W>(k);
+  if (t < 0) return;
+  const int32_t* p = pos + t * h;
+  const E* s = sib + t * h * (int64_t)(arity - 1) * NW;
+  bool same;
+  if constexpr (G == SPLIT_LANES) {
+    same = verify_proof_split(p, s, leaf + t * NW, root, h, arity,
+                              make_split_lane(warp_lane()));
+  } else {
+    same = verify_proof(p, s, leaf + t * NW, root, h, arity);
+  }
+  if (warp_lane() % W == 0 && owns_item<W>(k)) ok[t] = same ? 1 : 0;
+}
+
+// On limbs: sib [k, h, a-1, 8], leaf [k, 8], root [8] u32.
 template <int G>
 __global__ void __launch_bounds__(VERIFY_THREADS, min_blocks(G))
     verify_kernel(const int32_t* __restrict__ pos,
@@ -128,19 +155,22 @@ __global__ void __launch_bounds__(VERIFY_THREADS, min_blocks(G))
                   const uint32_t* __restrict__ leaf,
                   const uint32_t* __restrict__ root,
                   uint8_t* __restrict__ ok, int64_t k, int h, int arity) {
-  constexpr int W = group_width(G);
-  const int64_t t = group_item<W>(k);
-  if (t < 0) return;
-  const int32_t* p = pos + t * h;
-  const uint32_t* s = sib + t * h * (int64_t)(arity - 1) * NL;
-  bool same;
-  if constexpr (G == SPLIT_LANES) {
-    same = verify_proof_split(p, s, leaf + t * NL, root, h, arity,
-                              make_split_lane(warp_lane()));
-  } else {
-    same = verify_proof(p, s, leaf + t * NL, root, h, arity);
-  }
-  if (warp_lane() % W == 0 && owns_item<W>(k)) ok[t] = same ? 1 : 0;
+  verify_item<G>(pos, sib, leaf, root, ok, k, h, arity);
+}
+
+// On the public digits: sib [k, h, a-1, 16], leaf [k, 16], root [16]
+// int64, the leaf and siblings read by value and the root compared digit by
+// digit, so that a verify of proofs held as digits converts nothing.  Their
+// loads make the kernel 1.7-1.9% slower than the limb form (PERF.md).
+template <int G>
+__global__ void __launch_bounds__(VERIFY_THREADS, min_blocks(G))
+    verify_digits_kernel(const int32_t* __restrict__ pos,
+                         const int64_t* __restrict__ sib,
+                         const int64_t* __restrict__ leaf,
+                         const int64_t* __restrict__ root,
+                         uint8_t* __restrict__ ok, int64_t k, int h,
+                         int arity) {
+  verify_item<G>(pos, sib, leaf, root, ok, k, h, arity);
 }
 
 // K4: the raw batched permutation on states of any 256-bit values, so round
@@ -284,14 +314,34 @@ int launch_sponge_lanes(const E* in, uint32_t* out, int64_t batch, int n,
   }
 }
 
-template <int G>
-int launch_verify(const int32_t* pos, const uint32_t* sib,
-                  const uint32_t* leaf, const uint32_t* root, uint8_t* ok,
-                  int64_t k, int h, int arity, cudaStream_t stream) {
-  verify_kernel<G><<<blocks_for(k * group_width(G), VERIFY_THREADS),
-                     VERIFY_THREADS, 0, stream>>>(pos, sib, leaf, root, ok, k,
-                                                  h, arity);
+template <int G, typename E>
+int launch_verify(const int32_t* pos, const E* sib, const E* leaf,
+                  const E* root, uint8_t* ok, int64_t k, int h, int arity,
+                  cudaStream_t stream) {
+  const unsigned int blocks = blocks_for(k * group_width(G), VERIFY_THREADS);
+  if constexpr (sizeof(E) == sizeof(uint32_t)) {
+    verify_kernel<G><<<blocks, VERIFY_THREADS, 0, stream>>>(pos, sib, leaf,
+                                                            root, ok, k, h,
+                                                            arity);
+  } else {
+    verify_digits_kernel<G><<<blocks, VERIFY_THREADS, 0, stream>>>(
+        pos, sib, leaf, root, ok, k, h, arity);
+  }
   return (int)cudaGetLastError();
+}
+
+// lanes: G, as for the sponge.
+template <typename E>
+int launch_verify_lanes(const int32_t* pos, const E* sib, const E* leaf,
+                        const E* root, uint8_t* ok, int64_t k, int h, int arity,
+                        int lanes, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes) {
+    case 1: return launch_verify<1>(pos, sib, leaf, root, ok, k, h, arity, s);
+    case SPLIT_LANES:
+      return launch_verify<SPLIT_LANES>(pos, sib, leaf, root, ok, k, h, arity, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename Kernel>
@@ -330,13 +380,15 @@ int cuzk_sponge_digits(const int64_t* in, uint32_t* out, int64_t batch, int n,
 int cuzk_verify(const int32_t* pos, const uint32_t* sib, const uint32_t* leaf,
                 const uint32_t* root, uint8_t* ok, int64_t k, int h,
                 int arity, int lanes, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes) {
-    case 1: return launch_verify<1>(pos, sib, leaf, root, ok, k, h, arity, s);
-    case SPLIT_LANES:
-      return launch_verify<SPLIT_LANES>(pos, sib, leaf, root, ok, k, h, arity, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_verify_lanes(pos, sib, leaf, root, ok, k, h, arity, lanes,
+                             stream);
+}
+
+int cuzk_verify_digits(const int32_t* pos, const int64_t* sib,
+                       const int64_t* leaf, const int64_t* root, uint8_t* ok,
+                       int64_t k, int h, int arity, int lanes, void* stream) {
+  return launch_verify_lanes(pos, sib, leaf, root, ok, k, h, arity, lanes,
+                             stream);
 }
 
 int cuzk_permutation(const uint32_t* in, uint32_t* out, int64_t batch,

@@ -12,9 +12,9 @@ The counterpart of :mod:`cuzk_tpu.merkle`, with the same semantics
 Levels are ``[m, 16]`` int64 digit tensors on the leaves' device.  On a
 CUDA device each level is one launch of the sponge kernel on limbs, driven
 from the host, and per-proof verification is one launch of the fused
-verify kernel; on the CPU the plain versions run.  Host data (numpy,
-lists) with no ``device`` goes to the card, and raises without one: the
-CPU runs only for ``device="cpu"`` or tensors on the CPU
+verify kernel on the proofs' digits; on the CPU the plain versions run.
+Host data (numpy, lists) with no ``device`` goes to the card, and raises
+without one: the CPU runs only for ``device="cpu"`` or tensors on the CPU
 (:func:`~cuzk_tpu_torch.utils.device.resolve_device`).
 :func:`engine_path` forces the plain versions on the card (``"plain"``),
 or the kernels (``"kernel"``, which raises on CPU tensors), for the level
@@ -301,23 +301,19 @@ def _verify_plain(positions, siblings, leaves, root, arity: int) -> torch.Tensor
 
 
 def _verify_cuda(positions, siblings, leaves, root, arity: int) -> torch.Tensor:
-    """The verify kernel on limbs, with the plain path's digit semantics:
-    recomputed roots have canonical digits, so a root with a digit >= 2^16
-    never verifies (the limbs would read it by value), and with h = 0 the
-    leaf is compared with the root digit by digit, with no launch.
-    Positions are clamped to [-1, arity] before the int32 cast: every
-    position outside [0, arity) builds the same group as -1 or arity, and
-    a position 2^32 + p must not alias p."""
+    """The verify kernel on the proofs' digits as they lie on the card, with
+    the plain path's digit semantics: the kernel reads the leaf and siblings
+    by value and compares the root digit by digit with the recomputed
+    digest's canonical digits, so a root with a digit outside [0, 2^16)
+    never verifies; with h = 0 the leaf is compared with the root digit by
+    digit, with no launch.  Int32 positions go to the kernel as they are
+    (it clamps them to [-1, arity]); others are clamped before the int32
+    cast, so that a position 2^32 + p does not alias p."""
     if positions.shape[1] == 0:
         return (leaves == root[None, :]).all(dim=-1)
-    ok = poseidon_cuda.verify_limbs(
-        positions.clamp(-1, arity).to(torch.int32).contiguous(),
-        fr.digits_to_limbs(siblings).contiguous(),
-        fr.digits_to_limbs(leaves).contiguous(),
-        fr.digits_to_limbs(root).contiguous(),
-        arity,
-    )
-    return ok & ((root >= 0) & (root <= fr.DIGIT_MASK)).all()
+    return poseidon_cuda.verify_digits(
+        positions.contiguous(), siblings.contiguous(), leaves.contiguous(),
+        root.contiguous(), arity)
 
 
 def _check_proof_shapes(positions, siblings, leaves, root, arity: int) -> None:

@@ -28,6 +28,7 @@ from cuzk_tpu_torch.ops.poseidon_cuda import (
     sponge_digits,
     sponge_limbs,
     sponge_resident_threads,
+    verify_digits,
     verify_limbs,
 )
 
@@ -53,5 +54,6 @@ __all__ = [
     "sponge_digits",
     "sponge_limbs",
     "sponge_resident_threads",
+    "verify_digits",
     "verify_limbs",
 ]

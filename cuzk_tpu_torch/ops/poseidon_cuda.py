@@ -12,10 +12,10 @@ does, and runs where its tensors lie:
 - on any other device it builds the kernels (at the first call), checks
   device, dtype, shape and contiguity, launches on PyTorch's current
   stream and raises on a launch error.  K1 reads digits itself
-  (:func:`sponge_digits`) and returns limbs; K3 takes limbs, so its entry
-  points convert digits to limbs first; K4 and the per-op check kernel
-  read and write the digits themselves.  There is no fallback: without a
-  Hopper card, or when the build fails, it raises.
+  (:func:`sponge_digits`) and returns limbs; K3 reads digits itself
+  (:func:`verify_digits`) and returns the verdicts; K4 and the per-op
+  check kernel read and write the digits themselves.  There is no
+  fallback: without a Hopper card, or when the build fails, it raises.
 
 K1 and K3 run G lanes of a warp per state: one thread per state (G = 1),
 on the permutation body K4 runs, or three lanes holding one state element
@@ -29,13 +29,15 @@ Mosaic compile counts; a CUDA kernel takes the batch and width at run time,
 so none of it is here.
 
 The ``*_limbs`` launchers take 8 x u32 limb tensors on the card and run on
-no other device; :mod:`cuzk_tpu_torch.merkle` calls them for the tree
-build's upper levels (K1) and proof verification (K3), after its own
-device dispatch, and ``permutation_limbs`` and ``fr_op_limbs`` serve
+no other device; :mod:`cuzk_tpu_torch.merkle` calls ``sponge_limbs`` for
+the tree build's upper levels (K1), after its own device dispatch, and
+``verify_limbs``, ``permutation_limbs`` and ``fr_op_limbs`` serve
 limb-resident callers and time the arithmetic alone.
 :func:`sponge_digits` is K1 on ``[B, n, 16]`` int64 digits, read by value
 in the kernel: the first level of a build and every digit entry point
 (``hash_*_cuda``) go through it, so no leaf is converted.
+:func:`verify_digits` is K3 on the proofs' int64 digits: every proof
+verification on the card (``merkle.verify_proofs``) goes through it.
 
 The ``*_packed`` entry points take ``fr.pack16`` words, two digits per u32
 word: on the card those words are K1's limbs as they stand, so they go to
@@ -45,8 +47,8 @@ the kernel with no digit round trip.
 which kernels its main path went through.  K1 and K3's launchers are the
 spans ``cuzk.k1`` and ``cuzk.k3`` (:mod:`cuzk_tpu_torch.utils.trace`), and
 count each launch under the G it took, ``k1.lanes.<G>`` and
-``k3.lanes.<G>``, while a profiler session records; a launch of K1's
-digit form also counts ``k1.input.digits``.
+``k3.lanes.<G>``, while a profiler session records; a launch of K1's or
+K3's digit form also counts ``k1.input.digits`` or ``k3.input.digits``.
 """
 
 from __future__ import annotations
@@ -412,6 +414,48 @@ def permutation_cuda(states) -> torch.Tensor:
 # K3: per-proof verification
 # ---------------------------------------------------------------------------
 
+def _k3(positions: torch.Tensor, siblings: torch.Tensor,
+        leaves: torch.Tensor, root: torch.Tensor, arity: int, lanes,
+        digits: bool) -> torch.Tensor:
+    """K3 on ``int32`` positions and int32 limbs or int64 digits ->
+    ``[k] bool``."""
+    with trace.span("k3"):
+        kernels = _build.kernels()
+        dtype, width = (torch.int64, ND) if digits else (torch.int32, NL)
+        _check_limbs(positions, "positions", 2)
+        _check_limbs(siblings, "siblings", 4, dtype)
+        _check_limbs(leaves, "leaves", 2, dtype)
+        _check_limbs(root, "root", 1, dtype)
+        k, h = positions.shape
+        if len({t.device for t in (positions, siblings, leaves, root)}) != 1:
+            raise ValidationError("proof tensors must lie on one device")
+        if not constants.MIN_ARITY <= arity <= constants.MAX_ARITY:
+            raise ValidationError(f"arity must be in [2, 8], got {arity}")
+        if h < 1 or (
+            tuple(siblings.shape) != (k, h, arity - 1, width)
+            or tuple(leaves.shape) != (k, width)
+            or tuple(root.shape) != (width,)
+        ):
+            raise ValidationError(
+                f"proof tensors disagree: positions {tuple(positions.shape)}, "
+                f"siblings {tuple(siblings.shape)}, leaves {tuple(leaves.shape)}, "
+                f"root {tuple(root.shape)}, arity {arity}"
+            )
+        ok = torch.empty(k, dtype=torch.bool, device=leaves.device)
+        if k:
+            g = _lanes(lanes, k, leaves.device, "verify")
+            entry = (kernels.lib.cuzk_verify_digits if digits
+                     else kernels.lib.cuzk_verify)
+            _launch(kernels, entry, leaves.device, positions.data_ptr(),
+                    siblings.data_ptr(), leaves.data_ptr(), root.data_ptr(),
+                    ok.data_ptr(), k, h, arity, g)
+            launch_counts["verify"] += 1
+            trace.count(f"k3.lanes.{g}")
+            if digits:
+                trace.count("k3.input.digits")
+        return ok
+
+
 def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
                  leaves: torch.Tensor, root: torch.Tensor,
                  arity: int, lanes=None) -> torch.Tensor:
@@ -419,36 +463,25 @@ def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
     ``leaves [k, 8]`` and ``root [8]`` int32 on the card, h >= 1 ->
     ``[k] bool``, whether each proof's recomputed root equals ``root``.
     ``lanes`` forces G; by default :func:`choose_lanes` picks it."""
-    with trace.span("k3"):
-        kernels = _build.kernels()
-        _check_limbs(positions, "positions", 2)
-        _check_limbs(siblings, "siblings", 4)
-        _check_limbs(leaves, "leaves", 2)
-        _check_limbs(root, "root", 1)
-        k, h = positions.shape
-        if len({t.device for t in (positions, siblings, leaves, root)}) != 1:
-            raise ValidationError("proof limbs must lie on one device")
-        if not constants.MIN_ARITY <= arity <= constants.MAX_ARITY:
-            raise ValidationError(f"arity must be in [2, 8], got {arity}")
-        if h < 1 or (
-            tuple(siblings.shape) != (k, h, arity - 1, NL)
-            or tuple(leaves.shape) != (k, NL)
-            or tuple(root.shape) != (NL,)
-        ):
-            raise ValidationError(
-                f"proof limbs disagree: positions {tuple(positions.shape)}, "
-                f"siblings {tuple(siblings.shape)}, leaves {tuple(leaves.shape)}, "
-                f"root {tuple(root.shape)}, arity {arity}"
-            )
-        ok = torch.empty(k, dtype=torch.uint8, device=leaves.device)
-        if k:
-            g = _lanes(lanes, k, leaves.device, "verify")
-            _launch(kernels, kernels.lib.cuzk_verify, leaves.device,
-                    positions.data_ptr(), siblings.data_ptr(), leaves.data_ptr(),
-                    root.data_ptr(), ok.data_ptr(), k, h, arity, g)
-            launch_counts["verify"] += 1
-            trace.count(f"k3.lanes.{g}")
-        return ok.bool()
+    return _k3(positions, siblings, leaves, root, arity, lanes, digits=False)
+
+
+def verify_digits(positions: torch.Tensor, siblings: torch.Tensor,
+                  leaves: torch.Tensor, root: torch.Tensor,
+                  arity: int, lanes=None) -> torch.Tensor:
+    """K3 on digits: ``positions [k, h]``, ``siblings [k, h, a-1, 16]``,
+    ``leaves [k, 16]`` and ``root [16]`` int64 on the card, h >= 1 ->
+    ``[k] bool``, the plain verify's verdicts.  The kernel reads the leaf
+    and siblings by value, as :func:`fr.digits_to_limbs` does, and compares
+    the root digit by digit with the recomputed digest's canonical digits,
+    so a root digit outside [0, 2^16) never verifies; nothing is converted
+    before the launch.  Int32 positions go to the kernel as they are (it
+    clamps each to [-1, arity]); any other dtype is clamped first, so that
+    2^32 + p does not alias p in the cast.  ``lanes`` as in
+    :func:`verify_limbs`."""
+    if positions.dtype != torch.int32:
+        positions = positions.clamp(-1, arity).to(torch.int32)
+    return _k3(positions, siblings, leaves, root, arity, lanes, digits=True)
 
 
 # ---------------------------------------------------------------------------

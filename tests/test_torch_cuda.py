@@ -185,6 +185,59 @@ def test_verify_limbs_rejects_bad_arity_and_shapes(cuda_device):
         poseidon_cuda.verify_limbs(pos, zeros(4, 1, 1, 8), leaves, root.cpu(), 2)
 
 
+def test_verify_digits_rejects_bad_arity_and_shapes(cuda_device):
+    def zeros(*shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device=cuda_device)
+
+    pos, leaves, root = zeros(4, 1, dtype=torch.int32), zeros(4, 16), zeros(16)
+    with pytest.raises(errors.ValidationError, match="arity"):
+        poseidon_cuda.verify_digits(pos, zeros(4, 1, 0, 16), leaves, root, 1)
+    with pytest.raises(errors.ValidationError, match="disagree"):
+        poseidon_cuda.verify_digits(pos, zeros(4, 1, 1, 16), leaves, root, 3)
+    with pytest.raises(errors.ValidationError, match="int64 digits"):
+        poseidon_cuda.verify_digits(pos, zeros(4, 1, 1, 8, dtype=torch.int32),
+                                    leaves, root, 2)
+    with pytest.raises(errors.ValidationError, match="CUDA tensor"):
+        poseidon_cuda.verify_digits(pos, zeros(4, 1, 1, 16), leaves, root.cpu(), 2)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("arity,n_leaves", [(4, 65_536), (8, 300_000)])
+def test_verify_digits_equals_the_conversions_then_verify_limbs(
+        arity, n_leaves, lanes, cuda_device):
+    """K3's digit form against the three digit->limb conversions then its
+    limb form, and against the plain verify, on 5,000 proofs at 8 levels
+    (arity 4) and 7 levels (arity 8): tampered leaves, a sibling digit
+    d + 2^16, one 2^32 + d, a leaf's top digit at 2^40 - 1 and positions
+    out of range, at batches below and above a block and the whole."""
+    rng = np.random.default_rng(530 + arity)
+    levels = merkle.build_tree_levels(digits(rng, (n_leaves,), cuda_device),
+                                      arity)
+    idx = torch.as_tensor(rng.integers(0, n_leaves, 5_000), device=cuda_device)
+    pos, sib = merkle.generate_proofs(levels, arity, idx)
+    assert pos.shape == (5_000, 8 if arity == 4 else 7)
+    leaves = levels[0][idx].clone()
+    root = levels[-1][0]
+    leaves[::97, 3] ^= 1
+    sib[1::89, 2, 0, 4] += 1 << 16
+    sib[2::83, 0, 1, 2] += 1 << 32
+    leaves[3::79, 15] = (1 << 40) - 1
+    pos[4::71, 1] = arity + 5
+    pos[5::73, 6] = -7
+    want = merkle._verify_plain(pos, sib, leaves, root, arity)
+    assert want.any() and not want.all()
+    limbs = poseidon_cuda.verify_limbs(
+        pos.clamp(-1, arity).contiguous(), fr.digits_to_limbs(sib).contiguous(),
+        fr.digits_to_limbs(leaves).contiguous(),
+        fr.digits_to_limbs(root).contiguous(), arity, lanes=lanes)
+    assert torch.equal(limbs, want)
+    for k in (1, 33, 130, 5_000):
+        got = poseidon_cuda.verify_digits(pos[:k], sib[:k], leaves[:k], root,
+                                          arity, lanes=lanes)
+        assert got.dtype == torch.bool
+        assert torch.equal(got, want[:k]), k
+
+
 def test_permutation_kernel_matches_plain_and_oracle(cuda_device):
     rng = np.random.default_rng(400)
     edges = [0, 1, oracle.P - 1, oracle.P, (1 << 256) - 1]
@@ -335,6 +388,17 @@ def test_out_of_range_positions_through_the_verify_kernel(cuda_device):
                                 levels[-1][0].cpu(), 4)
     assert torch.equal(got.cpu(), want)
     assert want.tolist() == [False, False, False, True]
+    # The digit form on int32 positions as they are: the kernel clamps.
+    pos32 = pos.clamp(-8, 8).to(torch.int32)
+    pos32[0, 0], pos32[1, 1] = -7, 5
+    want32 = merkle._verify_plain(pos32.cpu(), sib.cpu(),
+                                  levels[0][[0, 5, 9, 63]].cpu(),
+                                  levels[-1][0].cpu(), 4)
+    for lanes in poseidon_cuda.LANES:
+        got32 = poseidon_cuda.verify_digits(
+            pos32, sib, levels[0][[0, 5, 9, 63]], levels[-1][0], 4, lanes=lanes)
+        assert torch.equal(got32.cpu(), want32)
+    assert want32.tolist() == [False, False, False, True]
 
 
 def test_updates_batch_trees_and_load_on_the_card(cuda_device, tmp_path):
@@ -610,7 +674,8 @@ def test_digit_forms_take_rows_off_16_bytes(cuda_device):
 def test_traced_build_and_verify_count_their_launches(cuda_device):
     """Under a profiler session the port's spans and launch counts read one
     K1 launch and one ``cuzk.k1`` span a level of a 65,536-leaf arity-4
-    build (8), and one K3 launch for a 5,000-proof verify of card proofs."""
+    build (8), and one K3 launch, on the proofs' digits, for a 5,000-proof
+    verify of card proofs."""
     from torch.profiler import ProfilerActivity, profile
 
     from cuzk_tpu_torch.utils import trace
@@ -640,6 +705,9 @@ def test_traced_build_and_verify_count_their_launches(cuda_device):
     assert t["counters"]["launch.verify"] == 1
     assert t["counters"]["launch.sponge"] == 0
     assert t["counters"]["verify.route.card"] == 1
+    # K3 reads the proofs' digits: nothing is converted to limbs.
+    assert t["counters"]["k3.input.digits"] == 1
+    assert "convert.rows.to_limbs" not in t["counters"]
     assert t["wait_s"] > 0
 
 

@@ -172,7 +172,7 @@ def _fake_launches(monkeypatch):
     monkeypatch.setattr(poseidon_cuda._build, "kernels",
                         lambda: types.SimpleNamespace(lib=types.SimpleNamespace(
                             cuzk_sponge=None, cuzk_sponge_digits=None,
-                            cuzk_verify=None)))
+                            cuzk_verify=None, cuzk_verify_digits=None)))
     monkeypatch.setattr(poseidon_cuda, "_check_limbs", lambda *a: None)
     monkeypatch.setattr(poseidon_cuda, "_launch", lambda *a: None)
     monkeypatch.setattr(poseidon_cuda, "resident_states", lambda *a: 84_480)
@@ -231,6 +231,38 @@ def test_digit_form_launches_count_beside_their_lanes(monkeypatch):
     assert c["k1.input.digits"] == 2
     assert c["k1.lanes.3"] == 2 and c["k1.lanes.1"] == 1
     assert c["launch.sponge"] == 3
+
+
+def test_digit_form_verify_launches_count_beside_their_lanes(monkeypatch):
+    """K3's digit form counts ``k3.input.digits`` a launch beside its G and
+    its ``launch.verify``; the limb form does not count it.  Int32
+    positions reach the launch as they are; int64 ones are clamped to
+    [-1, arity] first, so 2^32 + p does not alias p in the cast."""
+    _fake_launches(monkeypatch)
+    seen = []
+    monkeypatch.setattr(
+        poseidon_cuda, "_check_limbs",
+        lambda t, name, *a: seen.append(t) if name == "positions" else None)
+    i32, i64 = torch.int32, torch.int64
+    k, h = 1_000, 3  # G = 3
+    pos32 = torch.zeros((k, h), dtype=i32)
+    pos64 = torch.zeros((k, h), dtype=i64)
+    pos64[0] = torch.tensor([5, -7, (1 << 32) + 1])
+    digits = (torch.zeros((k, h, 3, 16), dtype=i64),
+              torch.zeros((k, 16), dtype=i64), torch.zeros(16, dtype=i64))
+    with session():
+        with trace.span("root"):
+            poseidon_cuda.verify_digits(pos32, *digits, 4)
+            poseidon_cuda.verify_digits(pos64, *digits, 4)
+            poseidon_cuda.verify_limbs(
+                pos32, torch.zeros((k, h, 3, 8), dtype=i32),
+                torch.zeros((k, 8), dtype=i32), torch.zeros(8, dtype=i32), 4)
+    c = trace.totals()["counters"]
+    assert c["k3.input.digits"] == 2
+    assert c["k3.lanes.3"] == 3 and c["launch.verify"] == 3
+    assert seen[0] is pos32 and seen[2] is pos32
+    assert seen[1].dtype == i32 and seen[1][0].tolist() == [4, -1, 4]
+    assert not seen[1][1:].any()
 
 
 def test_conversions_count_their_rows_only_while_recording():
