@@ -26,8 +26,9 @@ their public entry points at the reference's published sizes:
   holding one state element each) against their plain versions at edge
   batches, and a latency sweep of each kernel under each G beside the
   automatic choice.  Phase 1 prints ptxas's record
-  of every kernel (registers, stack frame, spills) and fails if K1 or K3
-  uses local memory;
+  of every kernel (registers, stack frame, spills) and fails if the
+  library builds another set of kernels than the pinned one, if a
+  kernel's registers move, or if a kernel uses local memory;
 - slice 5 (phase 15): the 1,048,576-leaf arity-8 tree (padded to 8^7 =
   2,097,152 rows, 7 K1 launches) built on the card, K1 at each of those
   launches' shapes and every level of the tree held against the plain
@@ -169,14 +170,16 @@ SHARDED_RANKS = (1, 4)
 TAMPERED_1M = (17, 1234, 4321)  # leaf, sibling, position
 
 
-# K1's and K3's registers (each in both input forms) as they compile with nvcc
-# 12.9 for sm_90a: at G = 1 the one-thread core K4 runs (78 registers in
-# K4), at G = 3 the element split.
-K1_K3_PTXAS = {
+# The registers of every kernel the library builds, as they compile with nvcc
+# 12.9 for sm_90a: K1 in both input forms and K3 at G = 1 (the one-thread
+# core K4 runs) and G = 3 (the element split), K4, and the check kernel at
+# its two row widths (reduce_wide's 32 digits, else 16).
+KERNEL_PTXAS = {
     "sponge_kernel<1>": 80, "sponge_kernel<3>": 72,
     "sponge_digits_kernel<1>": 80, "sponge_digits_kernel<3>": 72,
-    "verify_kernel<1>": 88, "verify_kernel<3>": 80,
     "verify_digits_kernel<1>": 88, "verify_digits_kernel<3>": 80,
+    "permutation_digits_kernel": 78,
+    "fr_op_digits_kernel<16>": 80, "fr_op_digits_kernel<32>": 78,
 }
 # Phase 7's K4 sweep (states a launch) and the batch field op's shapes:
 # phase 2's operand count and one launch that fills the card many times.
@@ -442,27 +445,20 @@ def sharded_phase(dev, name_power, bound):
     check(torch.nonzero(~plain_ok).flatten().tolist() == sorted(TAMPERED_1M),
           f"plain verify of the 1M proofs: exactly {TAMPERED_1M} must fail")
     k3_err = max_abs_err(merkle.verify_proofs(*proofs, root, ARITY_1M), plain_ok)
-    p, s, l = proofs
-    limbs = (p.clamp(-1, ARITY_1M).to(torch.int32).contiguous(),
-             fr.digits_to_limbs(s).contiguous(),
-             fr.digits_to_limbs(l).contiguous(),
-             fr.digits_to_limbs(root).contiguous())
     for g in pc.LANES:
         k3_err = max(k3_err, max_abs_err(
-            pc.verify_limbs(*limbs, ARITY_1M, lanes=g), plain_ok))
-        k3_err = max(k3_err, max_abs_err(
-            pc.verify_digits(p, s, l, root, ARITY_1M, lanes=g), plain_ok))
+            pc.verify_digits(*proofs, root, ARITY_1M, lanes=g), plain_ok))
     check(k3_err == 0, "K3 disagrees with the plain verify on the 1M proofs")
     want_verdicts = digest(plain_ok.to(torch.uint8))
     verify_1m_ms = cuda_time_ms(
         lambda: merkle.verify_proofs(*proofs, root, ARITY_1M), iters=3)
     k3_bound_ms, _ = bound(
         PROOFS_1M * h_1m * (ARITY_1M // 2),
-        want_pos.numel() * 4 + (want_sib.numel() + proved.numel()) * 2 + 32
+        want_pos.numel() * 4 + (want_sib.numel() + proved.numel() + 16) * 8
         + PROOFS_1M)
     print(f"phase 15 verify: {PROOFS_1M} proofs x {h_1m} levels arity 8, "
-          f"{TAMPERED_1M} tampered (leaf, sibling, position), K3 (limbs and "
-          f"digits) = plain at every G {list(pc.LANES)}; K3 {verify_1m_ms:.3f} ms (bound "
+          f"{TAMPERED_1M} tampered (leaf, sibling, position), K3 = plain at "
+          f"every G {list(pc.LANES)}; K3 {verify_1m_ms:.3f} ms (bound "
           f"{k3_bound_ms:.3f} ms, share {k3_bound_ms / verify_1m_ms:.3f}; "
           f"plain {verify_1m_plain_ms:.3f} ms) on {name_power}", flush=True)
 
@@ -642,28 +638,22 @@ def slice6_phase(dev, name_power, a, b, sms, clock_hz):
     for name in ("sponge", "verify", "permutation"):
         check(slice6[name] > 0, f"kernel {name} never ran in the slice-6 path")
 
-    # fr_op's sub at phase 2's shape and at FR_SUB_LARGE operands: the
-    # kernel's digit form (fr_op_cuda, what BatchFieldArithmetic calls), its
-    # limb form alone (fr_op_limbs) and the plain fr.sub.  Both forms are
-    # bound by their bytes (two operands read, one result written: 128
-    # bytes an element as digits, 32 as limbs), far above their few hundred
+    # fr_op's sub at phase 2's shape and at FR_SUB_LARGE operands: the check
+    # kernel (fr_op_cuda, what BatchFieldArithmetic calls) and the plain
+    # fr.sub.  The kernel is bound by its bytes (two operands read, one
+    # result written: 128 bytes an element), far above its few hundred
     # integer operations an element at 64 a clock on each SM.
     n = a.shape[0]
-    al, bl = (fr.digits_to_limbs(x).contiguous() for x in (a, b))
-    sub_err = max(max_abs_err(pc.fr_op_cuda("sub", a, b), fr.sub(a, b)),
-                  max_abs_err(fr.limbs_to_digits(pc.fr_op_limbs("sub", al, bl)),
-                              fr.sub(a, b)))
+    sub_err = max_abs_err(pc.fr_op_cuda("sub", a, b), fr.sub(a, b))
     check(sub_err == 0, "fr_op sub != plain")
-    sub_ms = cuda_time_ms(lambda: pc.fr_op_limbs("sub", al, bl))
-    sub_digits_ms = cuda_time_ms(lambda: pc.fr_op_cuda("sub", a, b))
+    sub_ms = cuda_time_ms(lambda: pc.fr_op_cuda("sub", a, b))
     sub_plain_ms = cuda_time_ms(lambda: fr.sub(a, b), iters=3, warmup=1)
 
     def bytes_bound_ms(count, row_bytes):
         return max(3 * row_bytes * count / HBM_BYTES_PER_S,
                    25 * count / (sms * 64 * clock_hz)) * 1e3
 
-    sub_bound_ms = bytes_bound_ms(n, 32)
-    sub_digits_bound_ms = bytes_bound_ms(n, 128)
+    sub_bound_ms = bytes_bound_ms(n, 128)
     big = [torch.as_tensor(np.random.default_rng(s).integers(
         0, 1 << 16, (FR_SUB_LARGE, fr.NDIGITS)), device=dev) for s in (161, 162)]
     rows = torch.arange(0, FR_SUB_LARGE, 997, device=dev)
@@ -687,10 +677,9 @@ def slice6_phase(dev, name_power, a, b, sms, clock_hz):
           f"({suite_s['compare']:.1f} s); sweep: 28 builds, 7 verifies of 256 "
           f"proofs ok ({suite_s['sweep']:.1f} s); BatchFieldArithmetic x 6 "
           f"ops on {n} operands = plain; {len(helpers)} int helpers golden; "
-          f"native = oracle on 256 pairs; fr_op sub at {n}: digits "
-          f"{sub_digits_ms:.4f} ms (bound {sub_digits_bound_ms:.4f}), limbs "
-          f"{sub_ms:.4f} (bound {sub_bound_ms:.4f}), plain {sub_plain_ms:.3f}; "
-          f"at {FR_SUB_LARGE}: digits {sub_large_ms:.3f} ms (bound "
+          f"native = oracle on 256 pairs; fr_op sub at {n}: {sub_ms:.4f} ms "
+          f"(bound {sub_bound_ms:.4f}), plain {sub_plain_ms:.3f}; at "
+          f"{FR_SUB_LARGE}: {sub_large_ms:.3f} ms (bound "
           f"{sub_large_bound_ms:.3f}); slice-6 launches "
           f"{slice6}; phase {time.perf_counter() - start_s:.1f} s on "
           f"{name_power}", flush=True)
@@ -700,10 +689,8 @@ def slice6_phase(dev, name_power, a, b, sms, clock_hz):
         "compare_50k_ms": {"accelerated": compare["accelerated_ms"],
                            "plain": compare["reference_path_ms"]},
         "sweep_ms": sweep_ms,
-        "fr_sub_ms": sub_ms, "fr_sub_digits_ms": sub_digits_ms,
-        "fr_sub_plain_ms": sub_plain_ms,
+        "fr_sub_ms": sub_ms, "fr_sub_plain_ms": sub_plain_ms,
         "fr_sub_bound_ms": sub_bound_ms,
-        "fr_sub_digits_bound_ms": sub_digits_bound_ms,
         "fr_sub_large_ms": sub_large_ms,
         "fr_sub_large_bound_ms": sub_large_bound_ms,
         "fr_sub_err": sub_err,
@@ -730,31 +717,29 @@ def main() -> None:
     print(f"phase 0 device: {name_power}", flush=True)
     print(name_power, flush=True)  # as nvidia-smi gives it
 
-    # (1) Build, and ptxas's record of each kernel: K1 and K3 must keep
-    # every operand in registers under each G.
+    # (1) Build, and ptxas's record of each kernel: the library builds
+    # exactly the pinned kernels, each keeping every operand in registers.
     kernels = _build.kernels()
     print(f"phase 1 build: {kernels.build_seconds:.1f} s -> {kernels.path}",
           flush=True)
     for name in sorted(kernels.ptxas):
         rec = kernels.ptxas[name]
         print(f"phase 1 ptxas {name}: {rec}", flush=True)
-        if name.startswith(("sponge_kernel", "sponge_digits_kernel",
-                            "verify_kernel", "verify_digits_kernel")):
-            check(rec.get("stack_frame") == 0 and rec.get("spill_stores") == 0
-                  and rec.get("spill_loads") == 0,
-                  f"{name} uses local memory: {rec}")
-    got_k1_k3 = {name: kernels.ptxas.get(name, {}).get("registers")
-                 for name in K1_K3_PTXAS}
-    check(got_k1_k3 == K1_K3_PTXAS,
-          f"K1/K3 ptxas records moved: {got_k1_k3}, expected {K1_K3_PTXAS}")
-    print(f"phase 1 K1/K3 ptxas as expected: {got_k1_k3} registers, "
+        check(rec.get("stack_frame") == 0 and rec.get("spill_stores") == 0
+              and rec.get("spill_loads") == 0,
+              f"{name} uses local memory: {rec}")
+    got_ptxas = {name: rec.get("registers")
+                 for name, rec in kernels.ptxas.items()}
+    check(got_ptxas == KERNEL_PTXAS,
+          f"ptxas records moved: {got_ptxas}, expected {KERNEL_PTXAS}")
+    print(f"phase 1 ptxas as expected: {got_ptxas} registers, "
           f"0 stack, 0 spills", flush=True)
-    k1_k3_sass = {}
-    for name in K1_K3_PTXAS:
+    kernel_sass = {}
+    for name in KERNEL_PTXAS:
         sass = sass_instructions(kernels.path,
                                  name.replace("<", "ILi").replace(">", "E"))
-        k1_k3_sass[name] = None if sass is None else len(sass[0])
-    print(f"phase 1 K1/K3 SASS instructions a kernel: {k1_k3_sass}", flush=True)
+        kernel_sass[name] = None if sass is None else len(sass[0])
+    print(f"phase 1 SASS instructions a kernel: {kernel_sass}", flush=True)
     clock_hz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
@@ -818,8 +803,7 @@ def main() -> None:
     wide = fr.mul_wide(a, b)
     op_err = max(op_err, max_abs_err(pc.fr_op_cuda("reduce_wide", wide),
                                      fr.reduce_wide(wide)))
-    # Every op in both forms (digits through fr_op_cuda, limbs through
-    # fr_op_limbs) on these operands plus non-canonical rows (d + 2^16,
+    # Every op on these operands plus non-canonical rows (d + 2^16,
     # 2^40 - 1, read by value), against the plain op on the canonical digits
     # of the same values (fr.carry).
     na, nb = a.clone(), b.clone()
@@ -832,21 +816,15 @@ def main() -> None:
         c = 26 if op.startswith("mul_small") else 0
         ca, cb = fr.carry(xa), fr.carry(xb)
         if op == "reduce_wide":
-            args, limb_args = (torch.cat([xa, xb], 1),), (torch.cat(
-                [fr.digits_to_limbs(xa), fr.digits_to_limbs(xb)], 1),)
-            want = plain(torch.cat([ca, cb], 1))
+            args, want = (torch.cat([xa, xb], 1),), plain(torch.cat([ca, cb], 1))
         elif op in pc._BINARY_FR_OPS:
-            args, limb_args = (xa, xb), tuple(map(fr.digits_to_limbs, (xa, xb)))
-            want = plain(ca, cb)
+            args, want = (xa, xb), plain(ca, cb)
         else:
-            args, limb_args = (xa,), (fr.digits_to_limbs(xa),)
-            want = plain(ca, c) if c else plain(ca)
-        op_err = max(op_err, max_abs_err(pc.fr_op_cuda(op, *args, c=c), want),
-                     max_abs_err(fr.limbs_to_digits(pc.fr_op_limbs(
-                         op, *(t.contiguous() for t in limb_args), c=c)), want))
+            args, want = (xa,), plain(ca, c) if c else plain(ca)
+        op_err = max(op_err, max_abs_err(pc.fr_op_cuda(op, *args, c=c), want))
     check(op_err == 0, f"fr op kernel disagrees with plain (max err {op_err})")
     print(f"phase 2 fr ops: {a.shape[0]} operands x {len(pc.FR_OPS)} ops, "
-          f"digits and limbs, non-canonical rows by value, "
+          f"non-canonical rows by value, "
           f"mul_small_rr(p - 1, 26): max_abs_err 0", flush=True)
 
     # (3) K1 against the plain sponge: every width, unreduced inputs and a
@@ -988,19 +966,11 @@ def main() -> None:
     k3_lanes = pc.choose_lanes(n_proofs, pc.resident_states(dev, "verify"))
     # Every G at this shape, and at edge batches over arities 2, 3, 4 and 8
     # with tampered leaves, siblings and positions out of range.
-    limbs5k = (pos.clamp(-1, arity).to(torch.int32).contiguous(),
-               fr.digits_to_limbs(tampered_sib).contiguous(),
-               fr.digits_to_limbs(tampered_leaves).contiguous(),
-               fr.digits_to_limbs(root).contiguous())
     for g in pc.LANES:
-        k3_err = max(k3_err, max_abs_err(pc.verify_limbs(*limbs5k, arity, lanes=g),
-                                         plain_ok))
         k3_err = max(k3_err, max_abs_err(pc.verify_digits(
             pos, tampered_sib, tampered_leaves, root, arity, lanes=g), plain_ok))
-    # K3 alone in its two forms at the automatic G, on the same proofs.
-    k3_limbs_ms = cuda_time_ms(
-        lambda: pc.verify_limbs(*limbs5k, arity, lanes=k3_lanes))
-    k3_digits_ms = cuda_time_ms(lambda: pc.verify_digits(
+    # K3 alone at the automatic G, on the same proofs.
+    k3_alone_ms = cuda_time_ms(lambda: pc.verify_digits(
         pos, tampered_sib, tampered_leaves, root, arity, lanes=k3_lanes))
     k3_edges = sorted({1, 31, 33, 517} | {g + d for g in pc.LANES
                                          for d in (-1, 1) if g + d > 0})
@@ -1015,26 +985,18 @@ def main() -> None:
         le[3::17, 2] ^= 1
         se[7::19, 0, 0, 1] ^= 1
         want = merkle._verify_plain(pe, se, le, small_tree[-1][0], a_)
-        args = (pe.clamp(-1, a_).to(torch.int32).contiguous(),
-                fr.digits_to_limbs(se).contiguous(),
-                fr.digits_to_limbs(le).contiguous(),
-                fr.digits_to_limbs(small_tree[-1][0]).contiguous())
         for g in pc.LANES:
             for size in k3_edges:
-                got = pc.verify_limbs(*(t[:size] for t in args[:3]), args[3],
-                                      a_, lanes=g)
-                k3_err = max(k3_err, max_abs_err(got, want[:size]))
                 got = pc.verify_digits(pe[:size], se[:size], le[:size],
                                        small_tree[-1][0], a_, lanes=g)
                 k3_err = max(k3_err, max_abs_err(got, want[:size]))
         check(bool(want.any()) and not bool(want.all()), "K3 edge batch mixes")
     check(k3_err == 0, "K3 disagrees with the plain verify")
     print(f"phase 6 verify: 5,000 proofs all true, tampered 10/20/30 false, "
-          f"K3 (limbs and digits) = plain at every G {list(pc.LANES)} (auto "
-          f"G = {k3_lanes}) and at batches {k3_edges} over arities 2, 3, 4, "
-          f"8; warm verify {verify_ms:.3f} ms; K3 alone at G = {k3_lanes} "
-          f"{k3_limbs_ms:.4f} ms on limbs, {k3_digits_ms:.4f} ms on digits, "
-          f"on {name_power}", flush=True)
+          f"K3 = plain at every G {list(pc.LANES)} (auto G = {k3_lanes}) and "
+          f"at batches {k3_edges} over arities 2, 3, 4, 8; warm verify "
+          f"{verify_ms:.3f} ms; K3 alone at G = {k3_lanes} {k3_alone_ms:.4f} "
+          f"ms on {name_power}", flush=True)
     # The 50K build's K1 launches, one per level, each timed alone.
     build_k1_ms = 0.0
     for lv in tree.levels[:-1]:
@@ -1047,9 +1009,8 @@ def main() -> None:
     for name in ("sponge", "verify"):
         check(launches[name] > 0, f"kernel {name} never ran in the main path")
 
-    # (7) K4 against the plain permutation, both forms (digits through
-    # permutation_cuda, limbs through permutation_limbs): 65,536 states of
-    # full 256-bit values (most >= p), then rows holding every combination
+    # (7) K4 (permutation_cuda) against the plain permutation: 65,536 states
+    # of full 256-bit values (most >= p), then rows holding every combination
     # of 0, 1, p - 1, p and 2^256 - 1 in the three lanes, a digit d + 2^16,
     # a digit 0xFFFFFFFF and a digit 2^40 - 1, each read by value.
     phase7_s = time.perf_counter()
@@ -1066,42 +1027,32 @@ def main() -> None:
         odd,
     ])
     plain_perm = poseidon.permutation(states)
-    k4_err = max(max_abs_err(pc.permutation_cuda(states), plain_perm),
-                 max_abs_err(fr.limbs_to_digits(pc.permutation_limbs(
-                     fr.digits_to_limbs(states).contiguous())), plain_perm))
+    k4_err = max_abs_err(pc.permutation_cuda(states), plain_perm)
     check(k4_err == 0, f"K4 disagrees with the plain permutation (max err {k4_err})")
     perm_digits = states[:n_perm].contiguous()
-    perm_limbs = fr.digits_to_limbs(perm_digits).contiguous()
-    k4_ms = cuda_time_ms(lambda: pc.permutation_limbs(perm_limbs))
-    k4_digits_ms = cuda_time_ms(lambda: pc.permutation_cuda(perm_digits))
+    k4_ms = cuda_time_ms(lambda: pc.permutation_cuda(perm_digits))
     k4_plain_ms = cuda_time_ms(lambda: poseidon.permutation(states[:n_perm]),
                                iters=1, warmup=0)
-    # The sweep: each shape in both forms, held against the plain
-    # permutation on 512 rows spread over the batch.
+    # The sweep: each shape held against the plain permutation on 512 rows
+    # spread over the batch.
     k4_sweep = {}
     for n_sw in K4_SWEEP:
         sw = digits((n_sw, 3))
-        sw_limbs = fr.digits_to_limbs(sw).contiguous()
         rows = torch.as_tensor(np.linspace(0, n_sw - 1, 512).astype(np.int64),
                                device=dev)
-        want = poseidon.permutation(sw[rows])
-        k4_err = max(k4_err, max_abs_err(pc.permutation_cuda(sw)[rows], want),
-                     max_abs_err(fr.limbs_to_digits(
-                         pc.permutation_limbs(sw_limbs)[rows]), want))
+        k4_err = max(k4_err, max_abs_err(pc.permutation_cuda(sw)[rows],
+                                         poseidon.permutation(sw[rows])))
         iters = max(3, 65536 * 10 // n_sw) if n_sw <= 65536 else 3
         k4_sweep[str(n_sw)] = {
-            "limbs_ms": cuda_time_ms(lambda x=sw_limbs: pc.permutation_limbs(x),
-                                     iters=iters),
-            "digits_ms": cuda_time_ms(lambda x=sw: pc.permutation_cuda(x),
-                                      iters=iters),
-            "bound_ms": bound(n_sw, n_sw * 6 * 32)[0],
+            "ms": cuda_time_ms(lambda x=sw: pc.permutation_cuda(x), iters=iters),
+            "bound_ms": bound(n_sw, n_sw * 6 * 128)[0],
         }
-        del sw, sw_limbs
+        del sw
     check(k4_err == 0, f"K4 disagrees with plain in the sweep (max err {k4_err})")
     # K4's SASS: the instructions a permutation issues, by opcode class,
     # and the issue bound they set at 65,536 states (one instruction a
     # clock on each of an SM's four schedulers).
-    sass = sass_instructions(kernels.path, "permutation_kernel")
+    sass = sass_instructions(kernels.path, "permutation_digits_kernel")
     k4_sass = None
     if sass is not None:
         counts, static = k4_dynamic_counts(*sass)
@@ -1109,9 +1060,9 @@ def main() -> None:
         k4_sass = {"per_permutation": counts, "total": total, "static": static,
                    "issue_bound_ms": total * (n_perm / 32) / (sms * 4 * clock_hz) * 1e3}
     print(f"phase 7 permutation: {states.shape[0]} states (edge rows and "
-          f"non-canonical digits included) K4 = plain, digits and limbs; K4 "
-          f"{k4_ms:.3f} ms on limbs, {k4_digits_ms:.3f} ms through "
-          f"permutation_cuda, plain {k4_plain_ms:.3f} ms at {n_perm} states; "
+          f"non-canonical digits included) K4 = plain; K4 {k4_ms:.3f} ms "
+          f"through permutation_cuda, plain {k4_plain_ms:.3f} ms at {n_perm} "
+          f"states; "
           f"sweep {k4_sweep} = plain on 512 rows a shape; SASS {k4_sass}; "
           f"phase {time.perf_counter() - phase7_s:.1f} s on {name_power}",
           flush=True)
@@ -1418,10 +1369,8 @@ def main() -> None:
         idx14 = torch.as_tensor(
             np.random.default_rng(14).integers(0, n_leaves, n_k), device=dev)
         p14, s14 = tree.generate_batch_proofs(idx14)
-        a14 = (p14.contiguous(), fr.digits_to_limbs(s14).contiguous(),
-               fr.digits_to_limbs(tree.levels[0][idx14]).contiguous(),
-               fr.digits_to_limbs(root).contiguous())
-        sweep_point(f"K3 {n_k} x 8 levels", lambda g, a=a14: pc.verify_limbs(
+        a14 = (p14, s14, tree.levels[0][idx14], root)
+        sweep_point(f"K3 {n_k} x 8 levels", lambda g, a=a14: pc.verify_digits(
             *a, arity, lanes=g), n_k, "verify")
     resident = {k: pc.resident_states(dev, k) for k in ("sponge", "verify")}
     print(f"phase 14 resident states at G = 1: {resident}", flush=True)
@@ -1438,9 +1387,9 @@ def main() -> None:
 
     k1_bound, k1_by = bound(65536, 65536 * 3 * 32)
     k3_perms = n_proofs * h * ((arity + 1) // 2)
-    k3_bound, k3_by = bound(k3_perms, pos.numel() * 4 + sib.numel() * 2
-                            + proved.numel() * 2 + 32 + n_proofs)
-    k4_bound, k4_by = bound(n_perm, n_perm * 6 * 32)
+    k3_bound, k3_by = bound(k3_perms, pos.numel() * 4 + sib.numel() * 8
+                            + proved.numel() * 8 + 128 + n_proofs)
+    k4_bound, k4_by = bound(n_perm, n_perm * 6 * 128)
     k1_lanes = pc.choose_lanes(65536, resident["sponge"])
     by_slice = {"1": launches, "2": slice2, "3": slice3, "5": slice5,
                 "6": slice6}
@@ -1468,21 +1417,18 @@ def main() -> None:
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "share": k4_bound / k4_ms, "lanes": 1,
-         "library_ms": None, "digits_ms": k4_digits_ms, "sweep": k4_sweep,
-         "sass": k4_sass},
+         "library_ms": None, "sweep": k4_sweep, "sass": k4_sass},
         {"name": "fr_op", "route": "cuda",
          "source": "cuzk_tpu_torch/csrc/poseidon_kernels.cu",
          "replaces": "cuzk_tpu/field/batch.py:42",
          "launches": sum(s["fr_op"] for s in by_slice.values()),
          "max_abs_err": max(op_err, slice6_numbers["fr_sub_err"]),
-         "ms": slice6_numbers["fr_sub_digits_ms"],
+         "ms": slice6_numbers["fr_sub_ms"],
          "plain_ms": slice6_numbers["fr_sub_plain_ms"],
-         "bound_ms": slice6_numbers["fr_sub_digits_bound_ms"],
+         "bound_ms": slice6_numbers["fr_sub_bound_ms"],
          "bound_by": "bytes",
-         "share": slice6_numbers["fr_sub_digits_bound_ms"]
-         / slice6_numbers["fr_sub_digits_ms"], "lanes": 1,
-         "library_ms": None, "op": "sub",
-         "limbs_ms": slice6_numbers["fr_sub_ms"]},
+         "share": slice6_numbers["fr_sub_bound_ms"] / slice6_numbers["fr_sub_ms"],
+         "lanes": 1, "library_ms": None, "op": "sub"},
     ], "pair_hashes_per_s": head["value"], "build_50k_ms": build_ms,
         "verify_5k_ms": verify_ms, "slice2_sponge_launches": slice2["sponge"],
         "poseidon_configs_hashes_per_s": rates,
@@ -1503,7 +1449,7 @@ def main() -> None:
         "build_50k_k1_ms": build_k1_ms, "launches_by_slice": by_slice,
         **slice5_numbers, **slice6_numbers, "sweep": sweep,
         "resident_states": resident, "clocks_max_sm_mhz": clock_hz / 1e6,
-        "ptxas": kernels.ptxas, "k1_k3_sass": k1_k3_sass, "card": name_power}
+        "ptxas": kernels.ptxas, "kernel_sass": kernel_sass, "card": name_power}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,9 @@ ignores).  Each turn is a fresh interpreter with that root (or this one)
 first on its path, so it builds and loads that tree's kernels; it times, by
 CUDA events on the same card:
 
-- K4 on limbs (``permutation_limbs``) at each shape of ``chip_smoke.py``'s
-  sweep, and on digits (``permutation_cuda``) at 65,536 states;
+- K4 (``permutation_cuda``) at each shape of ``chip_smoke.py``'s sweep;
 - the per-op check kernel's ``sub`` through ``fr_op_cuda`` at 68,613 and
-  4,194,304 operands, and on limbs (``fr_op_limbs``) at 68,613;
+  4,194,304 operands;
 - K1 at 65,536 pair hashes (``sponge_limbs``) and K3 on 5,000 proofs of the
   50,000-leaf arity-4 tree (``merkle.verify_proofs``).
 
@@ -55,18 +54,13 @@ def _turn() -> dict:
     out = {"tree": os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(pc.__file__)))), "card": nvidia_smi_name_power()}
     for n in K4_SHAPES:
-        lim = fr.digits_to_limbs(digits(n, (n, 3))).contiguous()
-        out[f"k4_limbs_ms_{n}"] = cuda_time_ms(
-            lambda: pc.permutation_limbs(lim), iters=max(3, 655360 // n))
-    st = digits(65536, (65536, 3))
-    out["k4_digits_ms_65536"] = cuda_time_ms(lambda: pc.permutation_cuda(st))
+        st = digits(n, (n, 3))
+        out[f"k4_ms_{n}"] = cuda_time_ms(
+            lambda: pc.permutation_cuda(st), iters=max(3, 655360 // n))
     for n in FR_SUB_SHAPES:
         a, b = digits(n, (n,)), digits(n + 1, (n,))
-        out[f"fr_sub_digits_ms_{n}"] = cuda_time_ms(
+        out[f"fr_sub_ms_{n}"] = cuda_time_ms(
             lambda: pc.fr_op_cuda("sub", a, b), iters=max(5, 10 * 68613 // n))
-    a, b = digits(1, (68613,)), digits(2, (68613,))
-    al, bl = fr.digits_to_limbs(a).contiguous(), fr.digits_to_limbs(b).contiguous()
-    out["fr_sub_limbs_ms_68613"] = cuda_time_ms(lambda: pc.fr_op_limbs("sub", al, bl))
     pairs = fr.digits_to_limbs(digits(3, (65536, 2))).contiguous()
     out["k1_ms_65536"] = cuda_time_ms(
         lambda: pc.sponge_limbs(pairs, poseidon.DS_PAIR))

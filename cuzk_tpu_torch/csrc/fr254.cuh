@@ -784,7 +784,7 @@ __device__ __forceinline__ Vec<1> mul_small(const Vec<1>& a, uint32_t c) {
 }
 
 // ---------------------------------------------------------------------------
-// The per-op check kernel's operations (poseidon_kernels.cu::fr_op_kernel)
+// The per-op check kernel's operations (poseidon_kernels.cu::fr_op_digits_kernel)
 // ---------------------------------------------------------------------------
 
 enum FrOp {

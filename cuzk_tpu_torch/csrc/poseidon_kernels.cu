@@ -3,22 +3,29 @@
 // check device, dtype, shape and contiguity, allocate the outputs, pass
 // PyTorch's current stream, and raise when a launch returns an error.
 //
-// Tensors of field elements are 8 x u32 little-endian limbs per element,
-// held in torch.int32 tensors and reinterpreted as uint32_t here.
+// The form each kernel reads.  A field element is 16 int64 digits (the
+// public form, read by value) or 8 u32 little-endian limbs (held in
+// torch.int32 tensors and reinterpreted as uint32_t here):
+//   - K1, the sponge, reads either: sponge_digits_kernel the leaf level's
+//     digits, sponge_kernel the limbs the level below wrote (and pack16
+//     words, which are limbs); both write limbs;
+//   - K3, the verify kernel (verify_digits_kernel), reads the proofs'
+//     digits and compares the root digit by digit;
+//   - K4, the raw permutation (permutation_digits_kernel), and the per-op
+//     check kernel (fr_op_digits_kernel) read and write digits.
 //
-// sponge_kernel (on limbs) and sponge_digits_kernel (on the public digits)
-// replace cuzk_tpu/ops/poseidon_pallas.py::_sponge_kernel_dyn
-// (pallas_call at :488).  verify_kernel and verify_digits_kernel (the same
-// two forms) replace ::_make_verify_kernel (pallas_call at :385).
-// permutation_kernel replaces ::_permutation_kernel (pallas_call at :795).
+// sponge_kernel and sponge_digits_kernel replace
+// cuzk_tpu/ops/poseidon_pallas.py::_sponge_kernel_dyn (pallas_call at
+// :488), verify_digits_kernel ::_make_verify_kernel (pallas_call at :385),
+// permutation_digits_kernel ::_permutation_kernel (pallas_call at :795).
 // The TPU kernels stream [16, 8, 128] digit tiles through VMEM and run a
 // grid in order on one core; here blocks run in any order and a thread, or
 // a group of lanes (poseidon.cuh), owns one hash, one proof or one state
 // with the state in registers.
 //
 // What bounds them: integer multiplies, about 88K 32-bit multiply results
-// a permutation (44,096 limb products), against 32 bytes read per absorbed
-// input.  A launch too small to fill the card's resident threads is bound
+// a permutation (44,096 limb products), against 32 (limbs) or 128 (digits) bytes read per
+// absorbed input.  A launch too small to fill the card's resident threads is bound
 // instead by one state's latency through 64 dependent rounds, and most of
 // the main path's launches are that small (a Merkle level of 64-4,096
 // groups, 5,000 proofs).  So the sponge and the verify kernel take G lanes
@@ -120,23 +127,25 @@ __global__ void __launch_bounds__(SPONGE_THREADS, min_blocks(G))
   sponge_item<G>(in, out, batch, n, ds);
 }
 
-// K3: fused per-proof verify.  pos [k, h] int32, sib [k, h, a-1, W],
-// leaf [k, W], root [W] in either input form (poseidon.cuh::load_input) ->
-// ok [k], one byte a verdict (a torch.bool tensor); thread or group t
-// verifies proof t.  Offsets are int64.
-template <int G, typename E>
+// K3: fused per-proof verify on the public digits.  pos [k, h] int32,
+// sib [k, h, a-1, 16], leaf [k, 16], root [16] int64 -> ok [k], one byte a
+// verdict (a torch.bool tensor); thread or group t verifies proof t.  The
+// leaf and siblings are read by value and the root compared digit by digit
+// (poseidon.cuh::verify_proof), so that a verify of proofs held as digits
+// converts nothing.  Offsets are int64.
+template <int G>
 __device__ __forceinline__ void verify_item(const int32_t* __restrict__ pos,
-                                            const E* __restrict__ sib,
-                                            const E* __restrict__ leaf,
-                                            const E* __restrict__ root,
+                                            const int64_t* __restrict__ sib,
+                                            const int64_t* __restrict__ leaf,
+                                            const int64_t* __restrict__ root,
                                             uint8_t* __restrict__ ok, int64_t k,
                                             int h, int arity) {
   constexpr int W = group_width(G);
-  constexpr int NW = INPUT_WORDS<E>;
+  constexpr int NW = 2 * NL;
   const int64_t t = group_item<W>(k);
   if (t < 0) return;
   const int32_t* p = pos + t * h;
-  const E* s = sib + t * h * (int64_t)(arity - 1) * NW;
+  const int64_t* s = sib + t * h * (int64_t)(arity - 1) * NW;
   bool same;
   if constexpr (G == SPLIT_LANES) {
     same = verify_proof_split(p, s, leaf + t * NW, root, h, arity,
@@ -147,21 +156,6 @@ __device__ __forceinline__ void verify_item(const int32_t* __restrict__ pos,
   if (warp_lane() % W == 0 && owns_item<W>(k)) ok[t] = same ? 1 : 0;
 }
 
-// On limbs: sib [k, h, a-1, 8], leaf [k, 8], root [8] u32.
-template <int G>
-__global__ void __launch_bounds__(VERIFY_THREADS, min_blocks(G))
-    verify_kernel(const int32_t* __restrict__ pos,
-                  const uint32_t* __restrict__ sib,
-                  const uint32_t* __restrict__ leaf,
-                  const uint32_t* __restrict__ root,
-                  uint8_t* __restrict__ ok, int64_t k, int h, int arity) {
-  verify_item<G>(pos, sib, leaf, root, ok, k, h, arity);
-}
-
-// On the public digits: sib [k, h, a-1, 16], leaf [k, 16], root [16]
-// int64, the leaf and siblings read by value and the root compared digit by
-// digit, so that a verify of proofs held as digits converts nothing.  Their
-// loads make the kernel 1.7-1.9% slower than the limb form (PERF.md).
 template <int G>
 __global__ void __launch_bounds__(VERIFY_THREADS, min_blocks(G))
     verify_digits_kernel(const int32_t* __restrict__ pos,
@@ -174,27 +168,13 @@ __global__ void __launch_bounds__(VERIFY_THREADS, min_blocks(G))
 }
 
 // K4: the raw batched permutation on states of any 256-bit values, so round
-// 0 adds with the full wrap.  Two forms of one body (poseidon.cuh::
-// permute_full_ilp, K4's own design): on limbs, in, out [B, 3, 8]; and on
-// the public digits, in, out [B, 3, 16] int64, read by value and written
-// below 2^16 (fr254.cuh::load_digits / store_digits), so that the wrapper
-// converts nothing.  What bounds it: the multiply pipe at 88,192 multiply
-// results a state (the rest of its instructions go to the ALU beside it);
-// its bytes (32 or 64 per element each way) are below 1% of that.  One
-// thread a state: at 65,536 states the launch is one wave.
-__global__ void __launch_bounds__(PERMUTATION_THREADS)
-    permutation_kernel(const uint32_t* __restrict__ in,
-                       uint32_t* __restrict__ out, int64_t batch) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  Vec<T> s;
-#pragma unroll
-  for (int i = 0; i < T; i++) s.e[i] = load(in + (b * T + i) * NL);
-  permute_full_ilp(s);
-#pragma unroll
-  for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s.e[i]);
-}
-
+// 0 adds with the full wrap (poseidon.cuh::permute_full_ilp, K4's own
+// design), on the public digits: in, out [B, 3, 16] int64, read by value
+// and written below 2^16 (fr254.cuh::load_digits / store_digits), so that
+// the wrapper converts nothing.  What bounds it: the multiply pipe at
+// 88,192 multiply results a state (the rest of its instructions go to the
+// ALU beside it); its bytes (128 per element each way) are below 1% of
+// that.  One thread a state: at 65,536 states the launch is one wave.
 __global__ void __launch_bounds__(PERMUTATION_THREADS)
     permutation_digits_kernel(const int64_t* __restrict__ in,
                               int64_t* __restrict__ out, int64_t batch) {
@@ -211,25 +191,10 @@ __global__ void __launch_bounds__(PERMUTATION_THREADS)
 // Per-op check kernel (ops fr254.cuh::FrOp): exposes the field library, one
 // operation per element, so that each can be held against its plain
 // PyTorch version; it is also the device half of field/batch.py's
-// BatchFieldArithmetic.
-// On limbs: a [n, 8] ([n, 16], low half first, for reduce_wide), b [n, 8].
-__global__ void __launch_bounds__(FR_OP_THREADS)
-    fr_op_kernel(int op, const uint32_t* __restrict__ a,
-                 const uint32_t* __restrict__ b, uint32_t c,
-                 uint32_t* __restrict__ out, int64_t n) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const bool wide = op == OP_REDUCE_WIDE;
-  const uint32_t* x = a + e * (wide ? 2 : 1) * NL;
-  const Fe r = fr_op_apply(op, load(x), wide ? load(x + NL) : zero(),
-                           load(b + e * NL), c);
-  store(out + e * NL, r);
-}
-
-// On the public digits: a [n, W] int64 (W = 32 for reduce_wide, two
-// elements a row, else 16), b [n, 16], out [n, 16].  What bounds it: its
-// bytes, 128 a digit row, against a few hundred integer operations an
-// element.  So a warp moves its 32 rows as consecutive 16-byte chunks
+// BatchFieldArithmetic.  On the public digits: a [n, W] int64 (W = 32 for
+// reduce_wide, two elements a row, else 16), b [n, 16], out [n, 16].
+// What bounds it: its bytes, 128 a digit row, against a few hundred
+// integer operations an element.  So a warp moves its 32 rows as consecutive 16-byte chunks
 // (coalesced) through shared memory, each thread then reads its own row by
 // value there (rows padded by one digit, so the 32 lanes hit other banks)
 // and computes one element, and the results leave the same way.
@@ -314,34 +279,14 @@ int launch_sponge_lanes(const E* in, uint32_t* out, int64_t batch, int n,
   }
 }
 
-template <int G, typename E>
-int launch_verify(const int32_t* pos, const E* sib, const E* leaf,
-                  const E* root, uint8_t* ok, int64_t k, int h, int arity,
+template <int G>
+int launch_verify(const int32_t* pos, const int64_t* sib, const int64_t* leaf,
+                  const int64_t* root, uint8_t* ok, int64_t k, int h, int arity,
                   cudaStream_t stream) {
   const unsigned int blocks = blocks_for(k * group_width(G), VERIFY_THREADS);
-  if constexpr (sizeof(E) == sizeof(uint32_t)) {
-    verify_kernel<G><<<blocks, VERIFY_THREADS, 0, stream>>>(pos, sib, leaf,
-                                                            root, ok, k, h,
-                                                            arity);
-  } else {
-    verify_digits_kernel<G><<<blocks, VERIFY_THREADS, 0, stream>>>(
-        pos, sib, leaf, root, ok, k, h, arity);
-  }
+  verify_digits_kernel<G><<<blocks, VERIFY_THREADS, 0, stream>>>(
+      pos, sib, leaf, root, ok, k, h, arity);
   return (int)cudaGetLastError();
-}
-
-// lanes: G, as for the sponge.
-template <typename E>
-int launch_verify_lanes(const int32_t* pos, const E* sib, const E* leaf,
-                        const E* root, uint8_t* ok, int64_t k, int h, int arity,
-                        int lanes, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes) {
-    case 1: return launch_verify<1>(pos, sib, leaf, root, ok, k, h, arity, s);
-    case SPLIT_LANES:
-      return launch_verify<SPLIT_LANES>(pos, sib, leaf, root, ok, k, h, arity, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 template <typename Kernel>
@@ -377,26 +322,17 @@ int cuzk_sponge_digits(const int64_t* in, uint32_t* out, int64_t batch, int n,
   return launch_sponge_lanes(in, out, batch, n, ds, lanes, stream);
 }
 
-int cuzk_verify(const int32_t* pos, const uint32_t* sib, const uint32_t* leaf,
-                const uint32_t* root, uint8_t* ok, int64_t k, int h,
-                int arity, int lanes, void* stream) {
-  return launch_verify_lanes(pos, sib, leaf, root, ok, k, h, arity, lanes,
-                             stream);
-}
-
+// lanes: G, as for the sponge.
 int cuzk_verify_digits(const int32_t* pos, const int64_t* sib,
                        const int64_t* leaf, const int64_t* root, uint8_t* ok,
                        int64_t k, int h, int arity, int lanes, void* stream) {
-  return launch_verify_lanes(pos, sib, leaf, root, ok, k, h, arity, lanes,
-                             stream);
-}
-
-int cuzk_permutation(const uint32_t* in, uint32_t* out, int64_t batch,
-                     void* stream) {
-  permutation_kernel<<<blocks_for(batch, PERMUTATION_THREADS),
-                       PERMUTATION_THREADS, 0, (cudaStream_t)stream>>>(
-      in, out, batch);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes) {
+    case 1: return launch_verify<1>(pos, sib, leaf, root, ok, k, h, arity, s);
+    case SPLIT_LANES:
+      return launch_verify<SPLIT_LANES>(pos, sib, leaf, root, ok, k, h, arity, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int cuzk_permutation_digits(const int64_t* in, int64_t* out, int64_t batch,
@@ -420,19 +356,14 @@ int cuzk_resident_states(int kernel, int lanes, int* states) {
     }
   } else if (kernel == 1) {
     switch (lanes) {
-      case 1: return resident_threads(verify_kernel<1>, VERIFY_THREADS, 1, states);
+      case 1:
+        return resident_threads(verify_digits_kernel<1>, VERIFY_THREADS, 1, states);
       case S:
-        return resident_threads(verify_kernel<S>, VERIFY_THREADS, group_width(S), states);
+        return resident_threads(verify_digits_kernel<S>, VERIFY_THREADS,
+                                group_width(S), states);
     }
   }
   return (int)cudaErrorInvalidValue;
-}
-
-int cuzk_fr_op(int op, const uint32_t* a, const uint32_t* b, uint32_t c,
-               uint32_t* out, int64_t n, void* stream) {
-  fr_op_kernel<<<blocks_for(n, FR_OP_THREADS), FR_OP_THREADS, 0,
-                 (cudaStream_t)stream>>>(op, a, b, c, out, n);
-  return (int)cudaGetLastError();
 }
 
 // Digit rows must start on 16 bytes (the wrapper's check).

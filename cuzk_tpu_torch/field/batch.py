@@ -4,11 +4,12 @@ batch surface (cuda/field_arithmetic_cuda.cuh:25-81: batch add, subtract,
 multiply, square, power5 over element arrays).
 
 On the card each call is one launch of the field core's check kernel
-(``ops.fr_op_cuda``: ``csrc/fr254.cuh`` through ``fr_op_kernel``); on CPU
-tensors it is the plain ``fr`` op.  The device is the one the other entry
-points pick (:func:`~cuzk_tpu_torch.utils.device.resolve_device`): the
-class's ``device`` when given, else the first tensor operand's, else the
-card.  Operands are ``[..., 16]`` digits (torch, numpy or lists) and
+(``ops.fr_op_cuda``: ``csrc/fr254.cuh`` through ``fr_op_digits_kernel``, on
+the digits themselves); on CPU tensors it is the plain ``fr`` op.  The
+device is the one the other entry points pick
+(:func:`~cuzk_tpu_torch.utils.device.resolve_device`): the class's
+``device`` when given, else the first tensor operand's, else the card.
+Operands are ``[..., 16]`` digits (torch, numpy or lists) and
 broadcast against each other.
 """
 

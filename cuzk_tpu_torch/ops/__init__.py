@@ -11,7 +11,6 @@ from cuzk_tpu_torch.ops.poseidon_cuda import (
     LANES,
     choose_lanes,
     fr_op_cuda,
-    fr_op_limbs,
     hash_multiple_cuda,
     hash_multiple_cuda_packed,
     hash_pair_cuda,
@@ -22,14 +21,12 @@ from cuzk_tpu_torch.ops.poseidon_cuda import (
     hash_single_cuda_packed,
     launch_counts,
     permutation_cuda,
-    permutation_limbs,
     reset_launch_counts,
     resident_states,
     sponge_digits,
     sponge_limbs,
     sponge_resident_threads,
     verify_digits,
-    verify_limbs,
 )
 
 __all__ = [
@@ -37,7 +34,6 @@ __all__ = [
     "LANES",
     "choose_lanes",
     "fr_op_cuda",
-    "fr_op_limbs",
     "hash_multiple_cuda",
     "hash_multiple_cuda_packed",
     "hash_pair_cuda",
@@ -48,12 +44,10 @@ __all__ = [
     "hash_single_cuda_packed",
     "launch_counts",
     "permutation_cuda",
-    "permutation_limbs",
     "reset_launch_counts",
     "resident_states",
     "sponge_digits",
     "sponge_limbs",
     "sponge_resident_threads",
     "verify_digits",
-    "verify_limbs",
 ]

@@ -110,12 +110,9 @@ class Kernels:
             "cuzk_set_round_constants": [p],
             "cuzk_sponge": [p, p, i64, i32, u32, i32, p],
             "cuzk_sponge_digits": [p, p, i64, i32, u32, i32, p],
-            "cuzk_permutation": [p, p, i64, p],
             "cuzk_resident_states": [i32, i32, ctypes.POINTER(ctypes.c_int)],
-            "cuzk_verify": [p, p, p, p, p, i64, i32, i32, i32, p],
             "cuzk_verify_digits": [p, p, p, p, p, i64, i32, i32, i32, p],
             "cuzk_permutation_digits": [p, p, i64, p],
-            "cuzk_fr_op": [i32, p, p, u32, p, i64, p],
             "cuzk_fr_op_digits": [i32, p, p, u32, p, i64, p],
         }
         for name, argtypes in signatures.items():

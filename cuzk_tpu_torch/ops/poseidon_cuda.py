@@ -28,16 +28,16 @@ The TPU path's batch and width bucketing (``_bucket_tiles``,
 Mosaic compile counts; a CUDA kernel takes the batch and width at run time,
 so none of it is here.
 
-The ``*_limbs`` launchers take 8 x u32 limb tensors on the card and run on
-no other device; :mod:`cuzk_tpu_torch.merkle` calls ``sponge_limbs`` for
-the tree build's upper levels (K1), after its own device dispatch, and
-``verify_limbs``, ``permutation_limbs`` and ``fr_op_limbs`` serve
-limb-resident callers and time the arithmetic alone.
-:func:`sponge_digits` is K1 on ``[B, n, 16]`` int64 digits, read by value
-in the kernel: the first level of a build and every digit entry point
-(``hash_*_cuda``) go through it, so no leaf is converted.
-:func:`verify_digits` is K3 on the proofs' int64 digits: every proof
-verification on the card (``merkle.verify_proofs``) goes through it.
+K3, K4 and the check kernel read only the public digits.  K1 alone also
+reads limbs: :func:`sponge_limbs` takes 8 x u32 limb tensors on the card
+and runs on no other device; :mod:`cuzk_tpu_torch.merkle` calls it for the
+tree build's upper levels, whose inputs are the limbs the level below
+wrote, after its own device dispatch.  :func:`sponge_digits` is K1 on
+``[B, n, 16]`` int64 digits, read by value in the kernel: the first level
+of a build and every digit entry point (``hash_*_cuda``) go through it, so
+no leaf is converted.  :func:`verify_digits` is K3 on the proofs' int64
+digits: every proof verification on the card (``merkle.verify_proofs``)
+goes through it.
 
 The ``*_packed`` entry points take ``fr.pack16`` words, two digits per u32
 word: on the card those words are K1's limbs as they stand, so they go to
@@ -47,14 +47,13 @@ the kernel with no digit round trip.
 which kernels its main path went through.  K1 and K3's launchers are the
 spans ``cuzk.k1`` and ``cuzk.k3`` (:mod:`cuzk_tpu_torch.utils.trace`), and
 count each launch under the G it took, ``k1.lanes.<G>`` and
-``k3.lanes.<G>``, while a profiler session records; a launch of K1's or
-K3's digit form also counts ``k1.input.digits`` or ``k3.input.digits``.
+``k3.lanes.<G>``, while a profiler session records; a launch of K1's
+digit form also counts ``k1.input.digits``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
@@ -363,24 +362,6 @@ def hash_single_cuda_loop(x, iters: int) -> torch.Tensor:
 # K4: the raw permutation
 # ---------------------------------------------------------------------------
 
-def permutation_limbs(states: torch.Tensor) -> torch.Tensor:
-    """K4 on limbs: ``states [B, 3, 8]`` int32 on the card -> ``[B, 3, 8]``,
-    the permutation of states of any 256-bit values."""
-    kernels = _build.kernels()
-    _check_limbs(states, "states", 3)
-    b, t, nl = states.shape
-    if (t, nl) != (poseidon.T, NL):
-        raise ValidationError(
-            f"states must be [B, {poseidon.T}, {NL}] limbs, got {states.shape}"
-        )
-    out = torch.empty_like(states)
-    if b:
-        _launch(kernels, kernels.lib.cuzk_permutation, states.device,
-                states.data_ptr(), out.data_ptr(), b)
-        launch_counts["permutation"] += 1
-    return out
-
-
 def _digit_rows(x: torch.Tensor, shape) -> torch.Tensor:
     """``x`` (int64 digits on the card) contiguous in ``shape``, copied when
     its rows would not start on 16 bytes: the digit-form kernels move rows
@@ -414,58 +395,6 @@ def permutation_cuda(states) -> torch.Tensor:
 # K3: per-proof verification
 # ---------------------------------------------------------------------------
 
-def _k3(positions: torch.Tensor, siblings: torch.Tensor,
-        leaves: torch.Tensor, root: torch.Tensor, arity: int, lanes,
-        digits: bool) -> torch.Tensor:
-    """K3 on ``int32`` positions and int32 limbs or int64 digits ->
-    ``[k] bool``."""
-    with trace.span("k3"):
-        kernels = _build.kernels()
-        dtype, width = (torch.int64, ND) if digits else (torch.int32, NL)
-        _check_limbs(positions, "positions", 2)
-        _check_limbs(siblings, "siblings", 4, dtype)
-        _check_limbs(leaves, "leaves", 2, dtype)
-        _check_limbs(root, "root", 1, dtype)
-        k, h = positions.shape
-        if len({t.device for t in (positions, siblings, leaves, root)}) != 1:
-            raise ValidationError("proof tensors must lie on one device")
-        if not constants.MIN_ARITY <= arity <= constants.MAX_ARITY:
-            raise ValidationError(f"arity must be in [2, 8], got {arity}")
-        if h < 1 or (
-            tuple(siblings.shape) != (k, h, arity - 1, width)
-            or tuple(leaves.shape) != (k, width)
-            or tuple(root.shape) != (width,)
-        ):
-            raise ValidationError(
-                f"proof tensors disagree: positions {tuple(positions.shape)}, "
-                f"siblings {tuple(siblings.shape)}, leaves {tuple(leaves.shape)}, "
-                f"root {tuple(root.shape)}, arity {arity}"
-            )
-        ok = torch.empty(k, dtype=torch.bool, device=leaves.device)
-        if k:
-            g = _lanes(lanes, k, leaves.device, "verify")
-            entry = (kernels.lib.cuzk_verify_digits if digits
-                     else kernels.lib.cuzk_verify)
-            _launch(kernels, entry, leaves.device, positions.data_ptr(),
-                    siblings.data_ptr(), leaves.data_ptr(), root.data_ptr(),
-                    ok.data_ptr(), k, h, arity, g)
-            launch_counts["verify"] += 1
-            trace.count(f"k3.lanes.{g}")
-            if digits:
-                trace.count("k3.input.digits")
-        return ok
-
-
-def verify_limbs(positions: torch.Tensor, siblings: torch.Tensor,
-                 leaves: torch.Tensor, root: torch.Tensor,
-                 arity: int, lanes=None) -> torch.Tensor:
-    """K3 on limbs: ``positions [k, h]`` int32, ``siblings [k, h, a-1, 8]``,
-    ``leaves [k, 8]`` and ``root [8]`` int32 on the card, h >= 1 ->
-    ``[k] bool``, whether each proof's recomputed root equals ``root``.
-    ``lanes`` forces G; by default :func:`choose_lanes` picks it."""
-    return _k3(positions, siblings, leaves, root, arity, lanes, digits=False)
-
-
 def verify_digits(positions: torch.Tensor, siblings: torch.Tensor,
                   leaves: torch.Tensor, root: torch.Tensor,
                   arity: int, lanes=None) -> torch.Tensor:
@@ -477,43 +406,45 @@ def verify_digits(positions: torch.Tensor, siblings: torch.Tensor,
     so a root digit outside [0, 2^16) never verifies; nothing is converted
     before the launch.  Int32 positions go to the kernel as they are (it
     clamps each to [-1, arity]); any other dtype is clamped first, so that
-    2^32 + p does not alias p in the cast.  ``lanes`` as in
-    :func:`verify_limbs`."""
+    2^32 + p does not alias p in the cast.  ``lanes`` forces G (one of
+    :data:`LANES`); by default :func:`choose_lanes` picks it."""
     if positions.dtype != torch.int32:
         positions = positions.clamp(-1, arity).to(torch.int32)
-    return _k3(positions, siblings, leaves, root, arity, lanes, digits=True)
+    with trace.span("k3"):
+        kernels = _build.kernels()
+        _check_limbs(positions, "positions", 2)
+        _check_limbs(siblings, "siblings", 4, torch.int64)
+        _check_limbs(leaves, "leaves", 2, torch.int64)
+        _check_limbs(root, "root", 1, torch.int64)
+        k, h = positions.shape
+        if len({t.device for t in (positions, siblings, leaves, root)}) != 1:
+            raise ValidationError("proof tensors must lie on one device")
+        if not constants.MIN_ARITY <= arity <= constants.MAX_ARITY:
+            raise ValidationError(f"arity must be in [2, 8], got {arity}")
+        if h < 1 or (
+            tuple(siblings.shape) != (k, h, arity - 1, ND)
+            or tuple(leaves.shape) != (k, ND)
+            or tuple(root.shape) != (ND,)
+        ):
+            raise ValidationError(
+                f"proof tensors disagree: positions {tuple(positions.shape)}, "
+                f"siblings {tuple(siblings.shape)}, leaves {tuple(leaves.shape)}, "
+                f"root {tuple(root.shape)}, arity {arity}"
+            )
+        ok = torch.empty(k, dtype=torch.bool, device=leaves.device)
+        if k:
+            g = _lanes(lanes, k, leaves.device, "verify")
+            _launch(kernels, kernels.lib.cuzk_verify_digits, leaves.device,
+                    positions.data_ptr(), siblings.data_ptr(), leaves.data_ptr(),
+                    root.data_ptr(), ok.data_ptr(), k, h, arity, g)
+            launch_counts["verify"] += 1
+            trace.count(f"k3.lanes.{g}")
+        return ok
 
 
 # ---------------------------------------------------------------------------
 # The per-op check kernel
 # ---------------------------------------------------------------------------
-
-def fr_op_limbs(op: str, a: torch.Tensor, b: Optional[torch.Tensor] = None,
-                c: int = 0) -> torch.Tensor:
-    """The check kernel on limbs: ``a [n, 8]`` int32 on the card (``[n,
-    16]``, low half first, for ``reduce_wide``), ``b [n, 8]`` for the binary
-    ops -> ``[n, 8]`` int32, one field operation of the device library per
-    element."""
-    kernels = _build.kernels()
-    code = FR_OPS[op][0]
-    _check_limbs(a, "a", 2)
-    n = a.shape[0]
-    if a.shape[1] != (2 * NL if op == "reduce_wide" else NL):
-        raise ValidationError(f"{op}: a has the wrong width, {tuple(a.shape)}")
-    if (b is None) == (op in _BINARY_FR_OPS):
-        raise ValidationError(
-            f"{op} takes {'two operands' if op in _BINARY_FR_OPS else 'one'}")
-    if b is not None:
-        _check_limbs(b, "b", 2)
-        if tuple(b.shape) != (n, NL) or b.device != a.device:
-            raise ValidationError(f"{op}: b must be [{n}, {NL}] limbs beside a")
-    out = torch.empty((n, NL), dtype=torch.int32, device=a.device)
-    if n:
-        _launch(kernels, kernels.lib.cuzk_fr_op, a.device, code, a.data_ptr(),
-                (a if b is None else b).data_ptr(), c, out.data_ptr(), n)
-        launch_counts["fr_op"] += 1
-    return out
-
 
 def fr_op_cuda(op: str, a, b=None, c: int = 0) -> torch.Tensor:
     """One field operation of the device library on ``[n, 16]`` digits

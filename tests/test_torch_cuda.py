@@ -110,13 +110,9 @@ def test_verify_kernel_under_each_lane_count(lanes, arity, cuda_device):
     leaves[2::7, 1] ^= 1
     root = levels[-1][0]
     want = merkle._verify_plain(pos, sib, leaves, root, arity)
-    args = (pos.clamp(-1, arity).to(torch.int32).contiguous(),
-            fr.digits_to_limbs(sib).contiguous(),
-            fr.digits_to_limbs(leaves).contiguous())
     for k in sorted({1, max(lanes - 1, 1), lanes + 1, 31, 33, 133}):
-        got = poseidon_cuda.verify_limbs(*(t[:k] for t in args),
-                                         fr.digits_to_limbs(root).contiguous(),
-                                         arity, lanes=lanes)
+        got = poseidon_cuda.verify_digits(pos[:k], sib[:k], leaves[:k], root,
+                                          arity, lanes=lanes)
         assert torch.equal(got, want[:k]), k
     assert want.any() and not want.all()
 
@@ -172,17 +168,17 @@ def test_tree_and_verify_kernels_match_plain(n, arity, cuda_device):
     assert got.tolist() == [True, False, False, False]
 
 
-def test_verify_limbs_rejects_bad_arity_and_shapes(cuda_device):
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+def test_verify_digits_rejects_bad_lanes_and_heights(cuda_device):
+    def zeros(*shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device=cuda_device)
 
-    pos, leaves, root = zeros(4, 1), zeros(4, 8), zeros(8)
-    with pytest.raises(errors.ValidationError, match="arity"):
-        poseidon_cuda.verify_limbs(pos, zeros(4, 1, 0, 8), leaves, root, 1)
+    leaves, root = zeros(4, 16), zeros(16)
+    with pytest.raises(errors.ValidationError, match="lanes"):
+        poseidon_cuda.verify_digits(zeros(4, 1, dtype=torch.int32),
+                                    zeros(4, 1, 1, 16), leaves, root, 2, lanes=2)
     with pytest.raises(errors.ValidationError, match="disagree"):
-        poseidon_cuda.verify_limbs(pos, zeros(4, 1, 1, 8), leaves, root, 3)
-    with pytest.raises(errors.ValidationError, match="CUDA tensor"):
-        poseidon_cuda.verify_limbs(pos, zeros(4, 1, 1, 8), leaves, root.cpu(), 2)
+        poseidon_cuda.verify_digits(zeros(4, 0, dtype=torch.int32),
+                                    zeros(4, 0, 1, 16), leaves, root, 2)
 
 
 def test_verify_digits_rejects_bad_arity_and_shapes(cuda_device):
@@ -203,13 +199,12 @@ def test_verify_digits_rejects_bad_arity_and_shapes(cuda_device):
 
 @pytest.mark.parametrize("lanes", [1, 3])
 @pytest.mark.parametrize("arity,n_leaves", [(4, 65_536), (8, 300_000)])
-def test_verify_digits_equals_the_conversions_then_verify_limbs(
+def test_verify_digits_equals_the_plain_verify_on_5000_proofs(
         arity, n_leaves, lanes, cuda_device):
-    """K3's digit form against the three digit->limb conversions then its
-    limb form, and against the plain verify, on 5,000 proofs at 8 levels
-    (arity 4) and 7 levels (arity 8): tampered leaves, a sibling digit
-    d + 2^16, one 2^32 + d, a leaf's top digit at 2^40 - 1 and positions
-    out of range, at batches below and above a block and the whole."""
+    """K3 against the plain verify on 5,000 proofs at 8 levels (arity 4)
+    and 7 levels (arity 8): tampered leaves, a sibling digit d + 2^16, one
+    2^32 + d, a leaf's top digit at 2^40 - 1 and positions out of range, at
+    batches below and above a block and the whole."""
     rng = np.random.default_rng(530 + arity)
     levels = merkle.build_tree_levels(digits(rng, (n_leaves,), cuda_device),
                                       arity)
@@ -226,11 +221,6 @@ def test_verify_digits_equals_the_conversions_then_verify_limbs(
     pos[5::73, 6] = -7
     want = merkle._verify_plain(pos, sib, leaves, root, arity)
     assert want.any() and not want.all()
-    limbs = poseidon_cuda.verify_limbs(
-        pos.clamp(-1, arity).contiguous(), fr.digits_to_limbs(sib).contiguous(),
-        fr.digits_to_limbs(leaves).contiguous(),
-        fr.digits_to_limbs(root).contiguous(), arity, lanes=lanes)
-    assert torch.equal(limbs, want)
     for k in (1, 33, 130, 5_000):
         got = poseidon_cuda.verify_digits(pos[:k], sib[:k], leaves[:k], root,
                                           arity, lanes=lanes)
@@ -500,13 +490,10 @@ def test_fr_op_sub_on_edge_operands(cuda_device):
     got = poseidon_cuda.fr_op_cuda("sub", a, b)
     assert torch.equal(got, fr.sub(a, b))
     assert fr.array_to_ints(got) == [port_oracle.sub(x, y) for x, y in pairs]
-    al, bl = fr.digits_to_limbs(a).contiguous(), fr.digits_to_limbs(b).contiguous()
-    assert torch.equal(
-        fr.limbs_to_digits(poseidon_cuda.fr_op_limbs("sub", al, bl)), got)
     with pytest.raises(errors.ValidationError):
         poseidon_cuda.fr_op_cuda("sub", a)
     with pytest.raises(errors.ValidationError):
-        poseidon_cuda.fr_op_limbs("mul", al)
+        poseidon_cuda.fr_op_cuda("square", a, b)
 
 
 def test_batch_field_arithmetic_on_the_card(cuda_device):
@@ -588,24 +575,22 @@ def _edge_and_odd_states(rng, device):
     return torch.cat([edge_states, odd])
 
 
-def test_permutation_digit_form_equals_limb_form_and_plain(cuda_device):
-    """K4 on digits (permutation_cuda) and on limbs (permutation_limbs) on
-    the edge rows and non-canonical digits, against the plain permutation."""
+def test_permutation_on_edge_rows_and_non_canonical_digits(cuda_device):
+    """K4 (permutation_cuda) on the edge rows and non-canonical digits, and
+    on an offset view, against the plain permutation."""
     rng = np.random.default_rng(401)
     states = torch.cat([digits(rng, (517, 3), cuda_device),
                         _edge_and_odd_states(rng, cuda_device)])
     want = poseidon.permutation(states)
     got = poseidon_cuda.permutation_cuda(states)
     assert got.dtype == torch.int64 and torch.equal(got, want)
-    lim = poseidon_cuda.permutation_limbs(fr.digits_to_limbs(states).contiguous())
-    assert torch.equal(fr.limbs_to_digits(lim), want)
     assert torch.equal(poseidon_cuda.permutation_cuda(states[1:]), want[1:])  # an offset view
 
 
 @pytest.mark.parametrize("batch", [4096, 16384, 65536, 262144, 1048576])
 def test_permutation_kernel_exact_at_the_sweep_shapes(batch, cuda_device):
-    """K4 at each shape of chip_smoke.py's sweep, both forms, held against
-    the plain permutation on 512 rows spread over the batch."""
+    """K4 at each shape of chip_smoke.py's sweep, held against the plain
+    permutation on 512 rows spread over the batch."""
     rng = np.random.default_rng(batch)
     states = digits(rng, (batch, 3), cuda_device)
     rows = torch.as_tensor(np.linspace(0, batch - 1, 512).astype(np.int64),
@@ -613,16 +598,13 @@ def test_permutation_kernel_exact_at_the_sweep_shapes(batch, cuda_device):
     want = poseidon.permutation(states[rows])
     got = poseidon_cuda.permutation_cuda(states)
     assert torch.equal(got[rows], want)
-    lim = poseidon_cuda.permutation_limbs(fr.digits_to_limbs(states).contiguous())
-    assert torch.equal(fr.limbs_to_digits(lim[rows]), want)
 
 
 @pytest.mark.parametrize("op", sorted(poseidon_cuda.FR_OPS))
-def test_fr_op_digit_form_equals_limb_form(op, cuda_device):
-    """The check kernel on digits (fr_op_cuda) and on limbs (fr_op_limbs)
-    on random, edge and non-canonical rows (d + 2^16, 2^40 - 1, read by
-    value), against the plain op on the canonical digits of the same
-    values (fr.carry)."""
+def test_fr_op_on_non_canonical_rows(op, cuda_device):
+    """The check kernel (fr_op_cuda) on random, edge and non-canonical rows
+    (d + 2^16, 2^40 - 1, read by value), against the plain op on the
+    canonical digits of the same values (fr.carry)."""
     rng = np.random.default_rng(402)
     edges = fr.ints_to_array([0, 1, oracle.P - 1, oracle.P, (1 << 256) - 1],
                              device=cuda_device)
@@ -637,22 +619,15 @@ def test_fr_op_digit_form_equals_limb_form(op, cuda_device):
     plain = poseidon_cuda.FR_OPS[op][1]
     ca, cb = fr.carry(a), fr.carry(b)
     if op == "reduce_wide":
-        x = (torch.cat([a, b], dim=1),)
-        want = plain(torch.cat([ca, cb], dim=1))
-        lim = (torch.cat([fr.digits_to_limbs(a), fr.digits_to_limbs(b)], 1),)
+        x, want = (torch.cat([a, b], dim=1),), plain(torch.cat([ca, cb], dim=1))
     elif op in ("mul_small", "mul_small_rr"):
         x, want = (a,), plain(ca, c)
-        lim = (fr.digits_to_limbs(a),)
     elif op in ("mul", "add_wrap_red", "add_rr", "sub"):
         x, want = (a, b), plain(ca, cb)
-        lim = (fr.digits_to_limbs(a), fr.digits_to_limbs(b))
     else:
         x, want = (a,), plain(ca)
-        lim = (fr.digits_to_limbs(a),)
     got = poseidon_cuda.fr_op_cuda(op, *x, c=c)
     assert got.dtype == torch.int64 and torch.equal(got, want)
-    got_limbs = poseidon_cuda.fr_op_limbs(op, *(t.contiguous() for t in lim), c=c)
-    assert torch.equal(fr.limbs_to_digits(got_limbs), want)
 
 
 def test_digit_forms_take_rows_off_16_bytes(cuda_device):
@@ -705,8 +680,8 @@ def test_traced_build_and_verify_count_their_launches(cuda_device):
     assert t["counters"]["launch.verify"] == 1
     assert t["counters"]["launch.sponge"] == 0
     assert t["counters"]["verify.route.card"] == 1
-    # K3 reads the proofs' digits: nothing is converted to limbs.
-    assert t["counters"]["k3.input.digits"] == 1
+    # K3 reads the proofs' digits, at G = 1: nothing is converted to limbs.
+    assert t["counters"]["k3.lanes.1"] == 1
     assert "convert.rows.to_limbs" not in t["counters"]
     assert t["wait_s"] > 0
 

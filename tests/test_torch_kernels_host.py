@@ -59,8 +59,8 @@ template <typename E> void sponge_rows(const E* in, uint32_t* out, int64_t batch
   run_split([&](int l) { for (int64_t b = 0; b < batch; b++) { SplitLane sl = make_split_lane(l);
     Fe r = sponge_row_split(in + b * n * w, n, ds, sl); if (l == 0) store(out + b * NL, r); } });
 }
-template <typename E> void verify_rows(const int32_t* pos, const E* sib, const E* leaf, const E* root, uint8_t* ok, int64_t k, int h, int arity, int G) {
-  const int64_t w = INPUT_WORDS<E>;
+void verify_rows(const int32_t* pos, const int64_t* sib, const int64_t* leaf, const int64_t* root, uint8_t* ok, int64_t k, int h, int arity, int G) {
+  const int64_t w = 2 * NL;
   if (G == 1) { for (int64_t t = 0; t < k; t++) ok[t] = verify_proof(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, root, h, arity); return; }
   run_split([&](int l) { for (int64_t t = 0; t < k; t++) { SplitLane sl = make_split_lane(l);
     bool same = verify_proof_split(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, root, h, arity, sl);
@@ -70,7 +70,6 @@ extern "C" {
 void h_set_rc(const uint32_t* rc) { memcpy(ROUND_CONSTANTS, rc, sizeof(ROUND_CONSTANTS)); }
 void h_sponge(const uint32_t* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) { sponge_rows(in, out, batch, n, ds, G); }
 void h_sponge_digits(const int64_t* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) { sponge_rows(in, out, batch, n, ds, G); }
-void h_verify(const int32_t* pos, const uint32_t* sib, const uint32_t* leaf, const uint32_t* root, uint8_t* ok, int64_t k, int h, int arity, int G) { verify_rows(pos, sib, leaf, root, ok, k, h, arity, G); }
 void h_verify_digits(const int32_t* pos, const int64_t* sib, const int64_t* leaf, const int64_t* root, uint8_t* ok, int64_t k, int h, int arity, int G) { verify_rows(pos, sib, leaf, root, ok, k, h, arity, G); }
 void h_perm(const uint32_t* in, uint32_t* out, int64_t batch) {
   for (int64_t b = 0; b < batch; b++) { Vec<T> s; for (int i = 0; i < T; i++) s.e[i] = load(in + (b * T + i) * NL);
@@ -124,7 +123,6 @@ def host_kernels(tmp_path_factory):
     h.h_set_rc.argtypes = [p]
     h.h_sponge.argtypes = [p, p, i64, i32, u32, i32]
     h.h_sponge_digits.argtypes = [p, p, i64, i32, u32, i32]
-    h.h_verify.argtypes = [p, p, p, p, p, i64, i32, i32, i32]
     h.h_verify_digits.argtypes = [p, p, p, p, p, i64, i32, i32, i32]
     h.h_perm.argtypes = [p, p, i64]
     h.h_fr_op.argtypes = [i32, p, p, u32, p, i64]
@@ -209,13 +207,8 @@ def test_verify_body_under_each_lane_count(lanes, host_kernels):
     leaves[2, 0] ^= 1
     root = levels[-1][0]
     want = merkle._verify_plain(pos, sib, leaves, root, 4)
-    k, h = pos.shape
-    p = np.ascontiguousarray(pos.clamp(-1, 4).to(torch.int32).numpy())
-    s, lv, r = limbs(sib), limbs(leaves), limbs(root)
-    ok = np.zeros(k, np.uint8)
-    host_kernels.h_verify(p.ctypes.data, s.ctypes.data, lv.ctypes.data,
-                          r.ctypes.data, ok.ctypes.data, k, h, 4, lanes)
-    assert ok.astype(bool).tolist() == want.tolist() == [True, False, False]
+    got = run_k3_digits(host_kernels, pos, sib, leaves, root, 4, lanes)
+    assert got == want.tolist() == [True, False, False]
 
 
 def test_raw_permutation_body(host_kernels):
@@ -348,17 +341,6 @@ def test_digit_input_sponge_body_equals_the_limb_body(arity, lanes,
     assert torch.equal(got, poseidon.hash_multiple(g))
 
 
-def run_k3(host_kernels, pos, sib, leaves, root, arity, lanes):
-    """K3's body under ``lanes``: one verdict a proof."""
-    k, h = pos.shape
-    p = np.ascontiguousarray(pos.clamp(-1, arity).to(torch.int32).numpy())
-    s, lv, r = limbs(sib), limbs(leaves), limbs(root)
-    ok = np.zeros(k, np.uint8)
-    host_kernels.h_verify(p.ctypes.data, s.ctypes.data, lv.ctypes.data,
-                          r.ctypes.data, ok.ctypes.data, k, h, arity, lanes)
-    return ok.astype(bool).tolist()
-
-
 @pytest.mark.parametrize("body,size", [("k1", w) for w in range(1, 9)]
                          + [("k3", a) for a in (2, 4, 8)])
 def test_one_thread_body_equals_the_split_and_the_oracle(body, size,
@@ -395,13 +377,13 @@ def test_one_thread_body_equals_the_split_and_the_oracle(body, size,
     root = levels[-1][0]
     want = merkle._verify_plain(pos, sib, leaves, root, arity).tolist()
     assert want == [True, False, False]
-    assert run_k3(host_kernels, pos, sib, leaves, root, arity, 1) == want
-    assert run_k3(host_kernels, pos, sib, leaves, root, arity, 3) == want
+    assert run_k3_digits(host_kernels, pos, sib, leaves, root, arity, 1) == want
+    assert run_k3_digits(host_kernels, pos, sib, leaves, root, arity, 3) == want
 
 
 def run_k3_digits(host_kernels, pos, sib, leaves, root, arity, lanes):
-    """K3's body under ``lanes`` on its digit form: int32 positions as they
-    are (the body clamps them), int64 digits read by value, the root
+    """K3's body under ``lanes``, one verdict a proof: int32 positions as
+    they are (the body clamps them), int64 digits read by value, the root
     compared digit by digit."""
     k, h = pos.shape
     p = np.ascontiguousarray(pos.to(torch.int32).numpy())
@@ -416,17 +398,16 @@ def run_k3_digits(host_kernels, pos, sib, leaves, root, arity, lanes):
 
 @pytest.mark.parametrize("lanes", [1, 3])
 @pytest.mark.parametrize("arity", [2, 4, 8])
-def test_digit_input_verify_body_equals_the_limb_body(arity, lanes,
-                                                      host_kernels):
-    """K3's digit form (leaf and siblings read by value, the root compared
-    digit by digit, positions clamped in the body) against its limb form
-    and the plain verify, on two-level proofs: honest, a tampered leaf, a
-    sibling digit d + 2^16 and one 2^32 + d (neither may alias to d), a
-    leaf's top digit at 2^40 - 1, positions 5, -7 and 2^31 - 1 left
-    unclamped, and a sibling with non-canonical digits of the same value
-    (verifies: by value).  Then a root with a digit >= 2^16 whose value is
-    the digest's: the limbs, read by value, match it; the digit form, like
-    the plain path, never verifies it."""
+def test_digit_input_verify_body_equals_the_plain_verify(arity, lanes,
+                                                         host_kernels):
+    """K3's body (leaf and siblings read by value, the root compared digit
+    by digit, positions clamped in the body) against the plain verify, on
+    two-level proofs: honest, a tampered leaf, a sibling digit d + 2^16 and
+    one 2^32 + d (neither may alias to d), a leaf's top digit at 2^40 - 1,
+    positions 5, -7 and 2^31 - 1 left unclamped, and a sibling with
+    non-canonical digits of the same value (verifies: by value).  Then a
+    root with a digit >= 2^16 whose value is the digest's: like the plain
+    path, the body never verifies it."""
     rng = np.random.default_rng(90 + arity)
     levels = merkle.build_tree_levels(rnd(rng, (arity + 1,)), arity,
                                       device=CPU)
@@ -447,13 +428,12 @@ def test_digit_input_verify_body_equals_the_limb_body(arity, lanes,
     assert want[0] and want[7] and not any(want[1:5])
     got = run_k3_digits(host_kernels, pos, sib, leaves, root, arity, lanes)
     assert got == want
-    assert run_k3(host_kernels, pos, sib, leaves, root, arity, lanes) == want
     alias = root.clone()
     alias[0] += 1 << 16
     alias[1] -= 1
     assert int(alias[1]) >= 0 and fr.digits_to_int(alias) == fr.digits_to_int(root)
     one = (pos[:1], sib[:1], leaves[:1])
-    assert run_k3(host_kernels, *one, alias, arity, lanes) == [True]
+    assert run_k3_digits(host_kernels, *one, root, arity, lanes) == [True]
     assert merkle._verify_plain(*one, alias, arity).tolist() == [False]
     assert run_k3_digits(host_kernels, *one, alias, arity, lanes) == [False]
 

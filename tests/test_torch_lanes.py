@@ -233,16 +233,16 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113sponge_kernelILi3EE
 ptxas info    : Function properties for _ZN12_GLOBAL__N_113sponge_kernelILi3EEEvPKjPjlij
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 0 barriers, 396 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118permutation_kernelEPKjPjl' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_118permutation_kernelEPKjPjl
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125permutation_digits_kernelEPKlPll' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125permutation_digits_kernelEPKlPll
     16 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 128 registers, used 0 barriers, 376 bytes cmem[0]
 """
     assert _build.parse_ptxas(log) == {
         "sponge_kernel<3>": {"stack_frame": 0, "spill_stores": 0,
                              "spill_loads": 0, "registers": 64},
-        "permutation_kernel": {"stack_frame": 16, "spill_stores": 4,
-                               "spill_loads": 8, "registers": 128},
+        "permutation_digits_kernel": {"stack_frame": 16, "spill_stores": 4,
+                                      "spill_loads": 8, "registers": 128},
     }
 
 

@@ -138,9 +138,9 @@ def test_slice6_entries_raise_without_a_gpu(no_cuda):
     meta = torch.zeros((2, 16), dtype=torch.int64, device="meta")
     with pytest.raises(errors.CudaUnavailableError):
         poseidon_cuda.fr_op_cuda("sub", meta, meta)
-    limbs = torch.zeros((2, 8), dtype=torch.int32)
+    host = np.zeros((2, 16), np.uint32)
     with pytest.raises(errors.CudaUnavailableError):
-        poseidon_cuda.fr_op_limbs("sub", limbs, limbs)
+        poseidon_cuda.fr_op_cuda("sub", host, host)
     for suite in ("verify", "compare", "sweep"):
         with pytest.raises(errors.CudaUnavailableError):
             run.main(["--suite", suite, "--skip-verify"])
@@ -170,11 +170,11 @@ def test_cuda_entries_raise_without_a_gpu(no_cuda):
             torch.zeros((4, 1, 1, 16), dtype=torch.int64, device="meta"),
             meta, torch.zeros(16, dtype=torch.int64, device="meta"), 2,
         )
-    limbs = torch.zeros((4, 8), dtype=torch.int32)
+    digits = torch.zeros((4, 16), dtype=torch.int64)
     with pytest.raises(errors.CudaUnavailableError):
-        poseidon_cuda.verify_limbs(
-            torch.zeros((4, 1), dtype=torch.int32), limbs[:, None, None],
-            limbs, limbs[0], 2,
+        poseidon_cuda.verify_digits(
+            torch.zeros((4, 1), dtype=torch.int32), digits[:, None, None],
+            digits, digits[0], 2,
         )
 
 
@@ -310,7 +310,7 @@ def test_slice2_entries_raise_without_a_gpu(no_cuda):
     with pytest.raises(errors.CudaUnavailableError):
         engine.verify_engines_match()
     with pytest.raises(errors.CudaUnavailableError):
-        poseidon_cuda.permutation_limbs(torch.zeros((4, 3, 8), dtype=torch.int32))
+        poseidon_cuda.permutation_cuda(np.zeros((4, 3, 16), np.uint32))
     meta = torch.zeros((4, 3, 16), dtype=torch.int64, device="meta")
     with pytest.raises(errors.CudaUnavailableError):
         poseidon_cuda.permutation_cuda(meta)
