@@ -23,9 +23,10 @@ their public entry points at the reference's published sizes:
   trees, and a save/load round trip of the 50K tree;
 - slice 4 (phase 14 and the lanes in phases 3 and 6): K1 and K3 at every
   G they are built for (``pc.LANES``: one thread per state, or three lanes
-  holding one state element each) against their plain versions at edge
-  batches, and a latency sweep of each kernel under each G beside the
-  automatic choice.  Phase 1 prints ptxas's record
+  holding one state element each, ten states a warp) against their plain
+  versions at edge batches, and a latency sweep of each kernel under each
+  G beside the automatic choice, across the split's capacity at one warp
+  a scheduler (SMs x 4 x 10 states).  Phase 1 prints ptxas's record
   of every kernel (registers, stack frame, spills) and fails if the
   library builds another set of kernels than the pinned one, if a
   kernel's registers move, or if a kernel uses local memory;
@@ -175,8 +176,8 @@ TAMPERED_1M = (17, 1234, 4321)  # leaf, sibling, position
 # core K4 runs) and G = 3 (the element split), K4, and the check kernel at
 # its two row widths (reduce_wide's 32 digits, else 16).
 KERNEL_PTXAS = {
-    "sponge_kernel<1>": 80, "sponge_kernel<3>": 72,
-    "sponge_digits_kernel<1>": 80, "sponge_digits_kernel<3>": 72,
+    "sponge_kernel<1>": 80, "sponge_kernel<3>": 76,
+    "sponge_digits_kernel<1>": 80, "sponge_digits_kernel<3>": 76,
     "verify_digits_kernel<1>": 88, "verify_digits_kernel<3>": 80,
     "permutation_digits_kernel": 78,
     "fr_op_digits_kernel<16>": 80, "fr_op_digits_kernel<32>": 78,
@@ -842,9 +843,11 @@ def main() -> None:
         k1_err = max(k1_err, max_abs_err(pc.hash_multiple_cuda(g),
                                          poseidon.hash_multiple(g)))
     # Every G at edge batches (1, G - 1, G + 1, 31, 33, and 517, not a
-    # multiple of the block): one plain sponge per width over all of them.
-    edge_sizes = sorted({1, 31, 33, 517} | {g + d for g in pc.LANES
-                                           for d in (-1, 1) if g + d > 0})
+    # multiple of the block; at G = 3 a partial warp of 9 or 11 and a
+    # block of 40 states, +-1): one plain sponge per width over all of
+    # them.
+    edge_sizes = sorted({1, 9, 10, 11, 31, 33, 39, 40, 41, 517}
+                        | {g + d for g in pc.LANES for d in (-1, 1) if g + d > 0})
     for w in WIDTHS:
         g_all = digits((sum(edge_sizes), w))
         g_all[::7, w - 1, 0] += 1 << 16
@@ -963,7 +966,7 @@ def main() -> None:
     end.synchronize()
     k3_plain_ms = start.elapsed_time(end)
     k3_err = max_abs_err(bad, plain_ok)
-    k3_lanes = pc.choose_lanes(n_proofs, pc.resident_states(dev, "verify"))
+    k3_lanes = pc.choose_lanes(n_proofs, sms)
     # Every G at this shape, and at edge batches over arities 2, 3, 4 and 8
     # with tampered leaves, siblings and positions out of range.
     for g in pc.LANES:
@@ -972,8 +975,8 @@ def main() -> None:
     # K3 alone at the automatic G, on the same proofs.
     k3_alone_ms = cuda_time_ms(lambda: pc.verify_digits(
         pos, tampered_sib, tampered_leaves, root, arity, lanes=k3_lanes))
-    k3_edges = sorted({1, 31, 33, 517} | {g + d for g in pc.LANES
-                                         for d in (-1, 1) if g + d > 0})
+    k3_edges = sorted({1, 9, 10, 11, 31, 33, 39, 40, 41, 517}
+                      | {g + d for g in pc.LANES for d in (-1, 1) if g + d > 0})
     for a_ in (2, 3, 4, 8):
         small_tree = merkle.build_tree_levels(digits((300,)), a_)
         idx_e = torch.as_tensor(np.arange(max(k3_edges)) * 7 % 300, device=dev)
@@ -1346,10 +1349,10 @@ def main() -> None:
     # with, under every G, beside the automatic choice.
     sweep = {}
 
-    def sweep_point(label, fn, batch, kernel):
+    def sweep_point(label, fn, batch):
         times = {g: cuda_time_ms(lambda g=g: fn(g), iters=3, warmup=1)
                  for g in pc.LANES}
-        auto = pc.choose_lanes(batch, pc.resident_states(dev, kernel))
+        auto = pc.choose_lanes(batch, sms)
         sweep[label] = {"ms": {str(g): t for g, t in times.items()},
                         "auto_lanes": auto,
                         "best_lanes": min(times, key=times.get)}
@@ -1357,23 +1360,32 @@ def main() -> None:
             f"G={g} {t:.3f} ms" for g, t in times.items())
             + f"; auto G={auto} on {name_power}", flush=True)
 
-    for n_groups in (64, 1024, 16384, 65536):
+    for n_groups in (64, 1024, 4096, 5280, 5632, 6144, 8192, 10560, 10561,
+                     12288, 16384, 65536):
         x4 = fr.digits_to_limbs(digits((n_groups, 4))).contiguous()
         sweep_point(f"K1 arity-4 x {n_groups}", lambda g, x=x4: pc.sponge_limbs(
-            x, poseidon.DS_MULTIPLE, lanes=g), n_groups, "sponge")
-    for n_pairs in (4096, 8192, 65536, 262144):
+            x, poseidon.DS_MULTIPLE, lanes=g), n_groups)
+    for n_pairs in (64, 4096, 5280, 6144, 8192, 10560, 10561, 12288, 16384,
+                    65536, 262144):
         x2 = fr.digits_to_limbs(digits((n_pairs, 2))).contiguous()
         sweep_point(f"K1 pairs x {n_pairs}", lambda g, x=x2: pc.sponge_limbs(
-            x, poseidon.DS_PAIR, lanes=g), n_pairs, "sponge")
-    for n_k in (500, 2500, 5000, 50000):
+            x, poseidon.DS_PAIR, lanes=g), n_pairs)
+    for n_k in (500, 2500, 4000, 5000, 5280, 5600, 7920, 10560, 10561, 13200,
+                15840, 50000):
         idx14 = torch.as_tensor(
             np.random.default_rng(14).integers(0, n_leaves, n_k), device=dev)
         p14, s14 = tree.generate_batch_proofs(idx14)
         a14 = (p14, s14, tree.levels[0][idx14], root)
         sweep_point(f"K3 {n_k} x 8 levels", lambda g, a=a14: pc.verify_digits(
-            *a, arity, lanes=g), n_k, "verify")
-    resident = {k: pc.resident_states(dev, k) for k in ("sponge", "verify")}
-    print(f"phase 14 resident states at G = 1: {resident}", flush=True)
+            *a, arity, lanes=g), n_k)
+    resident = {f"{k} G={g}": pc.resident_states(dev, k, g)
+                for k in ("sponge", "verify") for g in pc.LANES}
+    warp_a_scheduler = sms * pc.SCHEDULERS_PER_SM * pc.SPLIT_GROUPS
+    print(f"phase 14 resident states: {resident}; the split's states at one "
+          f"warp a scheduler {warp_a_scheduler}, at "
+          f"{pc.SPLIT_WARPS_PER_SCHEDULER} (where choose_lanes stops "
+          f"splitting) {warp_a_scheduler * pc.SPLIT_WARPS_PER_SCHEDULER}",
+          flush=True)
 
     # (15) Slice 5: the 1,048,576-leaf arity-8 tree on the card, then built
     # sharded by 1 rank and by 4 ranks that share the card.
@@ -1390,7 +1402,7 @@ def main() -> None:
     k3_bound, k3_by = bound(k3_perms, pos.numel() * 4 + sib.numel() * 8
                             + proved.numel() * 8 + 128 + n_proofs)
     k4_bound, k4_by = bound(n_perm, n_perm * 6 * 128)
-    k1_lanes = pc.choose_lanes(65536, resident["sponge"])
+    k1_lanes = pc.choose_lanes(65536, sms)
     by_slice = {"1": launches, "2": slice2, "3": slice3, "5": slice5,
                 "6": slice6}
     record = {"kernels": [

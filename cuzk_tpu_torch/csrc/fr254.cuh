@@ -31,10 +31,9 @@
 //     products they divide, slower at every measured shape (PERF.md).  What
 //     pays below a wave is splitting the state's three elements across
 //     lanes instead (poseidon.cuh).
-//   - One thread a state (K4, and K1 and K3 at G = 1) runs forms of its
-//     own, for the pipes of a full wave (section "The one-thread core"
-//     below); the element split and the per-op check kernel use the ones
-//     above.
+//   - The permutations (K4, and K1 and K3 under both mappings) run forms
+//     of their own, for the pipes of a full wave (section "The one-thread
+//     core" below); the per-op check kernel uses the ones above.
 #pragma once
 
 #include <cstdint>
@@ -483,10 +482,10 @@ __device__ __forceinline__ Vec<N> mul_small_rr(const Vec<N>& a,
 }
 
 // ---------------------------------------------------------------------------
-// The one-thread core (K4's body, and K1's and K3's at G = 1): the same
-// values as mul_wide, square_wide, reduce_wide, red and mul_small_rr,
-// formed for the pipes of a full wave.  The element split keeps the forms
-// above.
+// The one-thread core (K4's body, and K1's and K3's under both mappings,
+// one element a lane in the element split): the same values as mul_wide,
+// square_wide, reduce_wide, red and mul_small_rr, formed for the pipes of
+// a full wave.  The per-op check kernel keeps the forms above.
 //
 // What bounds the forms above at a full wave is the integer ALU pipe, not
 // the multiplier: each multiply result costs one IMAD and one IADD3.X

@@ -1,9 +1,10 @@
 // The Poseidon permutation and the per-item bodies of the sponge (K1) and
 // verify (K3) kernels, in two mappings: one thread per state, on the same
 // permutation body as the raw permutation (K4), and the element split
-// (three lanes per state, below).  Each body is what one thread or one lane
-// group computes for one row or one proof; the kernels in
-// poseidon_kernels.cu map them onto the grid.
+// (three lanes per state, ten states a warp, below), on the same field
+// forms.  Each body is what one thread or one lane group computes for one
+// row or one proof; the kernels in poseidon_kernels.cu map them onto the
+// grid.
 #pragma once
 
 #include "fr254.cuh"
@@ -220,58 +221,79 @@ __device__ __forceinline__ bool verify_proof(const int32_t* pos,
 }
 
 // ---------------------------------------------------------------------------
-// Element-split mapping (lanes = 3): three lanes of a four-lane group hold
-// one state, lane i the whole element s[i] (lane 3 mirrors lane 0 and is
-// never read).  The arithmetic is fr254.cuh's batched forms, with no carry
-// across lanes: a full round's three S-boxes and the MDS's three rows run
-// one per lane, and one shuffle round a round gathers the state for the
-// MDS.  Partial rounds compute every lane's S-box and keep lane 0's.
+// Element-split mapping (lanes = 3): three lanes hold one state, lane i of
+// the group the whole element s[i], and a warp packs ten groups, lanes 3g,
+// 3g + 1 and 3g + 2 for group g.  Lanes 30 and 31 mirror lanes 27 and 28
+// (the last group's rows 0 and 1) so that the warp stays converged, and
+// never store.  Below a wave one state's latency bounds a launch, and the
+// split's time steps with the warps a scheduler holds: ten states a warp
+// put 132 SMs x 4 x 10 = 5,280 states at one warp a scheduler on an H100,
+// where four-lane groups held 4,224.  The arithmetic is the one-thread core's
+// (power5_pairs, mds_row_quotient, add_rr), one element a lane: a full
+// round's three S-boxes and the MDS's three rows run one per lane, and one
+// shuffle round a round gathers the state for the MDS.  Partial rounds
+// compute every lane's S-box and keep row 0's.
 // ---------------------------------------------------------------------------
 
 constexpr int SPLIT_LANES = 3;
-constexpr int SPLIT_WIDTH = 4;
+constexpr int SPLIT_GROUPS = 10;  // lane groups a warp
+constexpr int WARP_LANES = 32;
 
 // Collectives run on the whole warp, converged: every lane of a warp
-// executes the same shuffles in the same order (the kernels keep the lanes
-// of a partial last warp working on a copy of a valid item).  A mask per
+// executes the same shuffles in the same order (the spare lanes and the
+// lanes of a partial last warp work on a copy of a valid item).  A mask per
 // group would let the groups of a warp diverge and serialize.
 constexpr uint32_t WARP = 0xffffffffu;
 
-__device__ __forceinline__ Fe split_shfl(const Fe& x, int src) {
+// The group of lane l of a warp: l / 3, and the last group for the two
+// spare lanes.
+__device__ __forceinline__ uint32_t split_group(uint32_t lane) {
+  const uint32_t g = lane / SPLIT_LANES;
+  return g < SPLIT_GROUPS ? g : SPLIT_GROUPS - 1;
+}
+
+// The item (row or proof) of thread t of a launch, or -1 when its whole
+// warp lies past the last of count items.  The groups of a partial last
+// warp past the end work on the last item (their results are not stored),
+// so that each warp stays converged through its shuffles.
+__device__ __forceinline__ int64_t split_item(int64_t t, int64_t count) {
+  const int64_t first = t / WARP_LANES * SPLIT_GROUPS;
+  if (first >= count) return -1;
+  const int64_t item = first + split_group((uint32_t)(t % WARP_LANES));
+  return item < count ? item : count - 1;
+}
+
+// Whether thread t stores its group's result: row 0 of a group of its own
+// (no spare lane), on an item below count.
+__device__ __forceinline__ bool split_stores(int64_t t, int64_t count) {
+  const uint32_t lane = (uint32_t)(t % WARP_LANES);
+  return lane < SPLIT_LANES * SPLIT_GROUPS && lane % SPLIT_LANES == 0 &&
+         t / WARP_LANES * SPLIT_GROUPS + lane / SPLIT_LANES < count;
+}
+
+__device__ __forceinline__ Fe split_shfl(const Fe& x, uint32_t src) {
   Fe r;
   FR254_UNROLL
-  for (int i = 0; i < NL; i++) r.v[i] = __shfl_sync(WARP, x.v[i], src, SPLIT_WIDTH);
+  for (int i = 0; i < NL; i++) r.v[i] = __shfl_sync(WARP, x.v[i], src);
   return r;
 }
 
-// This lane's element: s[row] of the state, row = lane (lane 3: row 0).
+// This lane's element: s[row] of the state its group holds from lane base.
 struct SplitLane {
   uint32_t row;
+  uint32_t base;
   uint32_t coef[T];  // mds[row][0..2]
 };
 
 __device__ __forceinline__ SplitLane make_split_lane(uint32_t warp_lane) {
   const uint32_t mds[T * T] = {7, 23, 8, 26, 5, 4, 15, 20, 9};
   SplitLane sl;
-  const uint32_t idx = warp_lane % SPLIT_WIDTH;
-  sl.row = idx < T ? idx : 0;
+  sl.base = SPLIT_LANES * split_group(warp_lane);
+  sl.row = (warp_lane - sl.base) % SPLIT_LANES;  // lanes 30, 31: rows 0, 1
   FR254_UNROLL
   for (int j = 0; j < T; j++)
     sl.coef[j] = sl.row == 0 ? mds[j] : (sl.row == 1 ? mds[T + j] : mds[2 * T + j]);
   return sl;
-}
-
-// One row of the MDS on the reduced state s:
-// coef[0] s0 + coef[1] s1 + coef[2] s2, each product a reduced mul_small
-// and the sums add_rr.
-__device__ __forceinline__ Fe mds_row(const Vec<T>& s,
-                                      const uint32_t (&coef)[T]) {
-  const Vec<T> m = mul_small_rr(s, coef);
-  Vec<1> a, b, c;
-  a.e[0] = m.e[0];
-  b.e[0] = m.e[1];
-  c.e[0] = m.e[2];
-  return add_rr(add_rr(a, b), c).e[0];
 }
 
 __device__ __forceinline__ Fe split_round_constant(int r, const SplitLane& sl) {
@@ -282,15 +304,13 @@ __device__ __forceinline__ void permute_rounds_split(Fe& mine,
                                                      const SplitLane& sl) {
 #pragma unroll 1
   for (int r = 0; r < ROUNDS; r++) {
-    Vec<1> x;
-    x.e[0] = mine;
-    x = power5(x);
-    if (r < HALF_FULL || r >= ROUNDS - HALF_FULL || sl.row == 0) mine = x.e[0];
+    const Fe x = power5_pairs(mine);
+    if (r < HALF_FULL || r >= ROUNDS - HALF_FULL || sl.row == 0) mine = x;
     Vec<T> s;
     FR254_UNROLL
-    for (int j = 0; j < T; j++) s.e[j] = split_shfl(mine, j);
+    for (int j = 0; j < T; j++) s.e[j] = split_shfl(mine, sl.base + j);
     Vec<1> ns;
-    ns.e[0] = mds_row(s, sl.coef);
+    ns.e[0] = mds_row_quotient(s, sl.coef);
     if (r + 1 < ROUNDS) {
       Vec<1> rc;
       rc.e[0] = split_round_constant(r + 1, sl);
@@ -335,7 +355,7 @@ __device__ __forceinline__ Fe sponge_row_split(const E* x, int n, uint32_t ds,
     const Fe v = takes ? load_input(x + (int64_t)j * INPUT_WORDS<E>) : mine;
     absorb_split(mine, v, takes, sl);
   }
-  return split_shfl(mine, 1);
+  return split_shfl(mine, sl.base + 1);
 }
 
 // K3's body (verify_proof) in the element-split mapping.
@@ -364,7 +384,7 @@ __device__ __forceinline__ bool verify_proof_split(const int32_t* pos,
       }
       absorb_split(mine, v, takes, sl);
     }
-    cur = split_shfl(mine, 1);
+    cur = split_shfl(mine, sl.base + 1);
   }
   return root_matches(cur, root);
 }

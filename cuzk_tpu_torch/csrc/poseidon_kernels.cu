@@ -30,14 +30,16 @@
 // the main path's launches are that small (a Merkle level of 64-4,096
 // groups, 5,000 proofs).  So the sponge and the verify kernel take G lanes
 // of a warp per state:
-//   - G = 1, one thread per state, for launches from a twentieth of a wave
-//     up, where only the issue rate counts: the body K4 runs, laid out for
-//     it (poseidon.cuh);
-//   - G = 3, three lanes of a four-lane group each holding one state element
+//   - G = 1, one thread per state, for launches above two split warps a
+//     scheduler, where the issue rate counts: the body K4 runs, laid out
+//     for it (poseidon.cuh);
+//   - G = 3, three lanes each holding one state element, ten states a warp
 //     (poseidon.cuh): a full round's three S-boxes and the MDS's three rows
-//     run in parallel, with no carry between lanes; shorter per state than
-//     G = 1 on an H100 (0.216 against 0.240 ms at 4,096 pairs).
-// The wrapper picks G from the batch and the resident threads
+//     run in parallel, with no carry between lanes, on the same field forms
+//     as G = 1.  Its blocks are four warps, so a launch of up to SMs x 4 x
+//     10 states (5,280 on an H100) puts at most one warp on each scheduler,
+//     and one of up to twice that at most two.
+// The wrapper picks G from the batch and the card's SM count
 // (ops/poseidon_cuda.py::choose_lanes).  The raw permutation runs one
 // thread a state.
 #include <cuda_runtime.h>
@@ -54,6 +56,11 @@ constexpr int SPONGE_THREADS = 128;
 constexpr int VERIFY_THREADS = 64;
 constexpr int PERMUTATION_THREADS = 128;
 constexpr int FR_OP_THREADS = 128;
+// The element split's blocks: four warps, one a scheduler of an SM, 40
+// states.  A launch of up to 5,280 states is 132 blocks on an H100, one to
+// an SM.
+constexpr int SPLIT_WARPS = 4;
+constexpr int SPLIT_THREADS = SPLIT_WARPS * WARP_LANES;
 // Launch bounds' minimum blocks per SM: unset (0) for one thread per
 // state, where ptxas gives the one-thread core 80 (K1) and 88 (K3)
 // registers with no spills, near K4's 78; a minimum of 640-1,024 resident
@@ -62,28 +69,31 @@ constexpr int FR_OP_THREADS = 128;
 // regime below a wave, where ptxas may take what registers it needs.
 constexpr int min_blocks(int lanes) { return lanes > 1 ? 1 : 0; }
 
-// Threads a state takes: one, or a four-lane group for the element split.
-__host__ __device__ constexpr int group_width(int lanes) {
-  return lanes == SPLIT_LANES ? SPLIT_WIDTH : 1;
+// Threads a block at G lanes a state: the split's four warps, or the
+// kernel's own count for one thread a state.
+constexpr int block_threads(int lanes, int one_thread) {
+  return lanes == SPLIT_LANES ? SPLIT_THREADS : one_thread;
 }
 
 __device__ __forceinline__ uint32_t warp_lane() { return threadIdx.x & 31u; }
 
-// The item of this thread's group of W lanes, or -1 when its whole warp
-// lies past the last item.  The lanes of a partial last warp past the end
-// work on the last item (their results are not stored), so that each warp
-// stays converged through its shuffles.
-template <int W>
-__device__ __forceinline__ int64_t group_item(int64_t count) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if ((t - warp_lane()) / W >= count) return -1;
-  const int64_t item = t / W;
-  return item < count ? item : count - 1;
-}
+// Where this thread works at G lanes a state: its item (row or proof), or
+// -1 when it has none, and whether it stores that item's result.  One
+// thread a state stores its own item; the split's groups are placed by
+// poseidon.cuh::split_item and split_stores.
+struct Place {
+  int64_t item;
+  bool stores;
+};
 
-template <int W>
-__device__ __forceinline__ bool owns_item(int64_t count) {
-  return ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / W < count;
+template <int G>
+__device__ __forceinline__ Place place(int64_t count) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (G == SPLIT_LANES) {
+    return {split_item(t, count), split_stores(t, count)};
+  } else {
+    return {t < count ? t : -1, t < count};
+  }
 }
 
 // K1: the width-dynamic sponge.  in [B, n, W] inputs of either form
@@ -94,22 +104,21 @@ template <int G, typename E>
 __device__ __forceinline__ void sponge_item(const E* __restrict__ in,
                                             uint32_t* __restrict__ out,
                                             int64_t batch, int n, uint32_t ds) {
-  constexpr int W = group_width(G);
-  const int64_t b = group_item<W>(batch);
-  if (b < 0) return;
-  const E* row = in + b * n * INPUT_WORDS<E>;
+  const Place at = place<G>(batch);
+  if (at.item < 0) return;
+  const E* row = in + at.item * n * INPUT_WORDS<E>;
   Fe r;
   if constexpr (G == SPLIT_LANES) {
     r = sponge_row_split(row, n, ds, make_split_lane(warp_lane()));
   } else {
     r = sponge_row(row, n, ds);
   }
-  if (warp_lane() % W == 0 && owns_item<W>(batch)) store(out + b * NL, r);
+  if (at.stores) store(out + at.item * NL, r);
 }
 
 // On limbs: in [B, n, 8] u32.
 template <int G>
-__global__ void __launch_bounds__(SPONGE_THREADS, min_blocks(G))
+__global__ void __launch_bounds__(block_threads(G, SPONGE_THREADS), min_blocks(G))
     sponge_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                   int64_t batch, int n, uint32_t ds) {
   sponge_item<G>(in, out, batch, n, ds);
@@ -120,7 +129,7 @@ __global__ void __launch_bounds__(SPONGE_THREADS, min_blocks(G))
 // four times the limbs' bytes, still under 1% of the permutations' time;
 // their loads make the kernel 1.4-1.8% slower than the limb form (PERF.md).
 template <int G>
-__global__ void __launch_bounds__(SPONGE_THREADS, min_blocks(G))
+__global__ void __launch_bounds__(block_threads(G, SPONGE_THREADS), min_blocks(G))
     sponge_digits_kernel(const int64_t* __restrict__ in,
                          uint32_t* __restrict__ out, int64_t batch, int n,
                          uint32_t ds) {
@@ -140,9 +149,9 @@ __device__ __forceinline__ void verify_item(const int32_t* __restrict__ pos,
                                             const int64_t* __restrict__ root,
                                             uint8_t* __restrict__ ok, int64_t k,
                                             int h, int arity) {
-  constexpr int W = group_width(G);
   constexpr int NW = 2 * NL;
-  const int64_t t = group_item<W>(k);
+  const Place at = place<G>(k);
+  const int64_t t = at.item;
   if (t < 0) return;
   const int32_t* p = pos + t * h;
   const int64_t* s = sib + t * h * (int64_t)(arity - 1) * NW;
@@ -153,11 +162,11 @@ __device__ __forceinline__ void verify_item(const int32_t* __restrict__ pos,
   } else {
     same = verify_proof(p, s, leaf + t * NW, root, h, arity);
   }
-  if (warp_lane() % W == 0 && owns_item<W>(k)) ok[t] = same ? 1 : 0;
+  if (at.stores) ok[t] = same ? 1 : 0;
 }
 
 template <int G>
-__global__ void __launch_bounds__(VERIFY_THREADS, min_blocks(G))
+__global__ void __launch_bounds__(block_threads(G, VERIFY_THREADS), min_blocks(G))
     verify_digits_kernel(const int32_t* __restrict__ pos,
                          const int64_t* __restrict__ sib,
                          const int64_t* __restrict__ leaf,
@@ -253,15 +262,23 @@ unsigned int blocks_for(int64_t n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
 }
 
+// Blocks for count items at G lanes a state, in blocks of threads threads
+// (poseidon.cuh::split_item: ten items a warp at G = 3).
+unsigned int blocks_for_items(int64_t count, int lanes, int threads) {
+  if (lanes != SPLIT_LANES) return blocks_for(count, threads);
+  const int64_t warps = (count + SPLIT_GROUPS - 1) / SPLIT_GROUPS;
+  return blocks_for(warps * WARP_LANES, threads);
+}
+
 template <int G, typename E>
 int launch_sponge(const E* in, uint32_t* out, int64_t batch, int n,
                   uint32_t ds, cudaStream_t stream) {
-  const unsigned int blocks = blocks_for(batch * group_width(G), SPONGE_THREADS);
+  constexpr int threads = block_threads(G, SPONGE_THREADS);
+  const unsigned int blocks = blocks_for_items(batch, G, threads);
   if constexpr (sizeof(E) == sizeof(uint32_t)) {
-    sponge_kernel<G><<<blocks, SPONGE_THREADS, 0, stream>>>(in, out, batch, n, ds);
+    sponge_kernel<G><<<blocks, threads, 0, stream>>>(in, out, batch, n, ds);
   } else {
-    sponge_digits_kernel<G><<<blocks, SPONGE_THREADS, 0, stream>>>(in, out, batch,
-                                                                  n, ds);
+    sponge_digits_kernel<G><<<blocks, threads, 0, stream>>>(in, out, batch, n, ds);
   }
   return (int)cudaGetLastError();
 }
@@ -283,19 +300,22 @@ template <int G>
 int launch_verify(const int32_t* pos, const int64_t* sib, const int64_t* leaf,
                   const int64_t* root, uint8_t* ok, int64_t k, int h, int arity,
                   cudaStream_t stream) {
-  const unsigned int blocks = blocks_for(k * group_width(G), VERIFY_THREADS);
-  verify_digits_kernel<G><<<blocks, VERIFY_THREADS, 0, stream>>>(
+  constexpr int threads = block_threads(G, VERIFY_THREADS);
+  verify_digits_kernel<G><<<blocks_for_items(k, G, threads), threads, 0, stream>>>(
       pos, sib, leaf, root, ok, k, h, arity);
   return (int)cudaGetLastError();
 }
 
-template <typename Kernel>
-int resident_threads(Kernel kernel, int threads_per_block, int width,
-                     int* states) {
+// States of kernel at G lanes a state that one SM holds resident, from the
+// occupancy API: a thread each at G = 1, ten a warp at G = 3.
+template <int G, typename Kernel>
+int resident(Kernel kernel, int one_thread, int* states) {
+  const int threads = block_threads(G, one_thread);
   int blocks = 0;
-  const cudaError_t code = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, threads_per_block, 0);
-  *states = blocks * threads_per_block / width;
+  const cudaError_t code =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+  *states = G == SPLIT_LANES ? blocks * threads / WARP_LANES * SPLIT_GROUPS
+                             : blocks * threads;
   return (int)code;
 }
 
@@ -350,17 +370,13 @@ int cuzk_resident_states(int kernel, int lanes, int* states) {
   constexpr int S = SPLIT_LANES;
   if (kernel == 0) {
     switch (lanes) {
-      case 1: return resident_threads(sponge_kernel<1>, SPONGE_THREADS, 1, states);
-      case S:
-        return resident_threads(sponge_kernel<S>, SPONGE_THREADS, group_width(S), states);
+      case 1: return resident<1>(sponge_kernel<1>, SPONGE_THREADS, states);
+      case S: return resident<S>(sponge_kernel<S>, SPONGE_THREADS, states);
     }
   } else if (kernel == 1) {
     switch (lanes) {
-      case 1:
-        return resident_threads(verify_digits_kernel<1>, VERIFY_THREADS, 1, states);
-      case S:
-        return resident_threads(verify_digits_kernel<S>, VERIFY_THREADS,
-                                group_width(S), states);
+      case 1: return resident<1>(verify_digits_kernel<1>, VERIFY_THREADS, states);
+      case S: return resident<S>(verify_digits_kernel<S>, VERIFY_THREADS, states);
     }
   }
   return (int)cudaErrorInvalidValue;

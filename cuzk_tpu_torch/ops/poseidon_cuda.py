@@ -19,9 +19,9 @@ does, and runs where its tensors lie:
 
 K1 and K3 run G lanes of a warp per state: one thread per state (G = 1),
 on the permutation body K4 runs, or three lanes holding one state element
-each (G = 3, ``csrc/poseidon.cuh``).  :func:`choose_lanes` picks 3 for
-small launches and 1 for large ones, from the crossover ``chip_smoke.py``'s
-sweep measures; ``lanes=`` forces G, for the tests and the sweep.
+each, ten states a warp (G = 3, ``csrc/poseidon.cuh``).  :func:`choose_lanes`
+picks 3 while the launch puts at most two warps on each warp scheduler and
+1 above it; ``lanes=`` forces G, for the tests and the sweep.
 
 The TPU path's batch and width bucketing (``_bucket_tiles``,
 ``_bucket_batch``, ``PAD_WIDTH``, ``_SCALAR_CACHE``) existed to bound
@@ -67,8 +67,7 @@ from cuzk_tpu_torch.utils.errors import KernelLaunchError, ValidationError
 ND = fr.NDIGITS
 NL = fr.NLIMBS
 # The G each of K1 and K3 is built for: one thread per state, or 3 lanes
-# holding one element each (a group of four threads per state,
-# csrc/poseidon.cuh).
+# holding one element each (ten groups a warp, csrc/poseidon.cuh).
 LANES = (1, 3)
 
 launch_counts = {"sponge": 0, "verify": 0, "permutation": 0, "fr_op": 0}
@@ -131,24 +130,44 @@ def _on_device(x, device=None) -> torch.Tensor:
 # Lanes per state
 # ---------------------------------------------------------------------------
 
-# The crossover of the lanes sweep (chip_smoke.py phase 14, NVIDIA H100
-# 80GB HBM3 at 700 W), one thread per state on K4's permutation body: the
-# element split (3 lanes) is faster up to 4,096 sponge rows (of 2, 4 or 8
-# inputs) and 4,000 proofs, and slower from 4,608 rows and 4,250 proofs
-# on, where its four threads per state make the launch issue-bound.  A wave
-# is 101,376 sponge states and 84,480 proofs, so the split stops at a
-# twentieth of one: 5,068 rows, 4,224 proofs.
+# The element split (3 lanes a state) packs SPLIT_GROUPS states a warp
+# (lanes 30 and 31 spare), and its launches run four-warp blocks, one warp
+# on each of an SM's SCHEDULERS_PER_SM warp schedulers.  Below a wave one
+# state's latency bounds a launch, and the split's time steps with the
+# warps its most loaded scheduler holds (chip_smoke.py phase 14, NVIDIA H100
+# 80GB HBM3 at 700 W, K4's forms): a K1 row of two inputs 0.155 ms at one
+# warp a scheduler (up to 5,280 states), 0.210 at two, 0.312 from three on,
+# against one thread a state's 0.241 flat up to a wave; K3 (8-level proofs)
+# 2.44, 3.33 and 5.04 ms against 3.87.  So the split runs while no
+# scheduler holds more than SPLIT_WARPS_PER_SCHEDULER of its warps: up to
+# SMs x 4 x 10 x 2 states (10,560 on an H100's 132 SMs).
 SPLIT_LANES = 3
-SPLIT_FRACTION = 20
+SPLIT_GROUPS = 10
+SCHEDULERS_PER_SM = 4
+SPLIT_WARPS_PER_SCHEDULER = 2
 
 
-def choose_lanes(batch: int, resident: int) -> int:
-    """G for a launch of ``batch`` states on a card that holds ``resident``
-    states at one thread each: the element split (3 lanes) up to a
-    twentieth of a wave, where one state's latency bounds the launch; one
-    thread per state above it, where the issue rate does.  A pure function,
-    so the choice can be tested."""
-    return SPLIT_LANES if batch * SPLIT_FRACTION <= resident else 1
+def choose_lanes(batch: int, sms: int) -> int:
+    """G for a launch of ``batch`` states on a card of ``sms`` SMs: the
+    element split (3 lanes) while no scheduler holds more than two of its
+    warps, ``batch <= sms * SCHEDULERS_PER_SM * SPLIT_GROUPS *
+    SPLIT_WARPS_PER_SCHEDULER``; one thread per state above it, where the
+    split's three threads a state make the launch issue-bound.  A pure
+    function, so the choice can be tested."""
+    capacity = (sms * SCHEDULERS_PER_SM * SPLIT_GROUPS
+                * SPLIT_WARPS_PER_SCHEDULER)
+    return SPLIT_LANES if batch <= capacity else 1
+
+
+_sm_cache = {}
+
+
+def _multiprocessors(device: torch.device) -> int:
+    """The SM count of ``device``, cached per device."""
+    if device.index not in _sm_cache:
+        _sm_cache[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_cache[device.index]
 
 
 _KERNEL_IDS = {"sponge": 0, "verify": 1}
@@ -167,18 +186,17 @@ def resident_states(device: torch.device, kernel: str = "sponge",
         with torch.cuda.device(device):
             code = kernels.lib.cuzk_resident_states(
                 _KERNEL_IDS[kernel], lanes, ctypes.byref(states))
-            sms = torch.cuda.get_device_properties(device).multi_processor_count
         if code != 0:
             raise KernelLaunchError(
                 f"occupancy query failed: {kernels.error_string(code)}"
             )
-        _resident_cache[key] = states.value * sms
+        _resident_cache[key] = states.value * _multiprocessors(device)
     return _resident_cache[key]
 
 
-def _lanes(lanes, batch: int, device: torch.device, kernel: str) -> int:
+def _lanes(lanes, batch: int, device: torch.device) -> int:
     if lanes is None:
-        return choose_lanes(batch, resident_states(device, kernel))
+        return choose_lanes(batch, _multiprocessors(device))
     if lanes not in LANES:
         raise ValidationError(f"lanes must be one of {LANES}, got {lanes}")
     return lanes
@@ -203,7 +221,7 @@ def _k1(x: torch.Tensor, ds: int, lanes, digits: bool) -> torch.Tensor:
         if b == 0 or n == 0:
             # The empty input returns 0 with no permutation (SURVEY.md B.4).
             return out.zero_()
-        g = _lanes(lanes, b, x.device, "sponge")
+        g = _lanes(lanes, b, x.device)
         entry = kernels.lib.cuzk_sponge_digits if digits else kernels.lib.cuzk_sponge
         _launch(kernels, entry, x.device, x.data_ptr(), out.data_ptr(), b, n,
                 ds, g)
@@ -267,8 +285,7 @@ def hash_multiple_cuda(inputs) -> torch.Tensor:
 def sponge_resident_threads(device: torch.device) -> int:
     """Threads of K1 at one thread per state resident on one SM of
     ``device``, from the CUDA occupancy API."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return resident_states(device, "sponge") // sms
+    return resident_states(device, "sponge") // _multiprocessors(device)
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +450,7 @@ def verify_digits(positions: torch.Tensor, siblings: torch.Tensor,
             )
         ok = torch.empty(k, dtype=torch.bool, device=leaves.device)
         if k:
-            g = _lanes(lanes, k, leaves.device, "verify")
+            g = _lanes(lanes, k, leaves.device)
             _launch(kernels, kernels.lib.cuzk_verify_digits, leaves.device,
                     positions.data_ptr(), siblings.data_ptr(), leaves.data_ptr(),
                     root.data_ptr(), ok.data_ptr(), k, h, arity, g)

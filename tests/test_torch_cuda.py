@@ -117,6 +117,57 @@ def test_verify_kernel_under_each_lane_count(lanes, arity, cuda_device):
     assert want.any() and not want.all()
 
 
+# The element split's states at one and at two warps a scheduler on an
+# H100 (132 SMs x 4 x 10, and twice that, where choose_lanes stops
+# splitting), +-1, and partial last warps and blocks (10 states a warp, 40
+# a block).
+SPLIT_EDGES = (9, 10, 11, 39, 40, 41, 5279, 5280, 5281, 10559, 10560, 10561)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k3"])
+def test_split_at_its_capacity_edge(kernel, cuda_device):
+    """K1 (rows of 3 inputs, both input forms) and K3 (arity 4, 6 levels,
+    with tampered leaves and siblings and out-of-range positions) at G = 3
+    bit for bit against G = 1 at every batch of SPLIT_EDGES, and against
+    the plain sponge or verify on the first and last 64 items of the
+    largest."""
+    rng = np.random.default_rng(280)
+    n = max(SPLIT_EDGES)
+    ends = torch.cat([torch.arange(64), torch.arange(n - 64, n)]).to(cuda_device)
+    if kernel == "k1":
+        g = digits(rng, (n, 3), cuda_device)
+        g[::13, 2, 0] += 1 << 16
+        x = fr.digits_to_limbs(g).contiguous()
+        for k in SPLIT_EDGES:
+            one = poseidon_cuda.sponge_digits(g[:k], 3, lanes=1)
+            assert torch.equal(poseidon_cuda.sponge_digits(g[:k], 3, lanes=3),
+                               one), k
+            assert torch.equal(poseidon_cuda.sponge_limbs(x[:k], 3, lanes=3),
+                               one), k
+        got = poseidon_cuda.sponge_digits(g, 3, lanes=3)
+        assert torch.equal(fr.limbs_to_digits(got[ends]),
+                           poseidon.hash_multiple(g[ends]))
+        return
+    levels = merkle.build_tree_levels(digits(rng, (4096,), cuda_device), 4)
+    idx = torch.as_tensor(rng.integers(0, 4096, n), device=cuda_device)
+    pos, sib = merkle.generate_proofs(levels, 4, idx)
+    leaves = levels[0][idx].clone()
+    pos = pos.to(torch.int32)
+    pos[::37, 2] = 6
+    leaves[5::41, 3] ^= 1
+    sib[7::43, 1, 2, 9] += 1 << 16
+    root = levels[-1][0]
+    for k in SPLIT_EDGES:
+        a = (pos[:k], sib[:k], leaves[:k], root, 4)
+        assert torch.equal(poseidon_cuda.verify_digits(*a, lanes=3),
+                           poseidon_cuda.verify_digits(*a, lanes=1)), k
+    got = poseidon_cuda.verify_digits(pos, sib, leaves, root, 4, lanes=3)
+    want = merkle._verify_plain(pos[ends].to(torch.int64), sib[ends],
+                                leaves[ends], root, 4)
+    assert torch.equal(got[ends], want)
+    assert want.any() and not want.all()
+
+
 def test_tree_method_on_card_proofs_is_one_verify_launch(cuda_device,
                                                          monkeypatch):
     rng = np.random.default_rng(270)
@@ -680,8 +731,10 @@ def test_traced_build_and_verify_count_their_launches(cuda_device):
     assert t["counters"]["launch.verify"] == 1
     assert t["counters"]["launch.sponge"] == 0
     assert t["counters"]["verify.route.card"] == 1
-    # K3 reads the proofs' digits, at G = 1: nothing is converted to limbs.
-    assert t["counters"]["k3.lanes.1"] == 1
+    # K3 reads the proofs' digits, 5,000 of them at G = 3 (within the
+    # split's 10,560 states on 132 SMs): nothing is converted to limbs.
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert t["counters"][f"k3.lanes.{poseidon_cuda.choose_lanes(5_000, sms)}"] == 1
     assert "convert.rows.to_limbs" not in t["counters"]
     assert t["wait_s"] > 0
 

@@ -4,11 +4,15 @@ against the plain PyTorch versions.
 
 There is no CUDA compiler here, but the headers' device code is plain C++
 apart from the carry flag (which the headers model on the host) and the
-warp shuffles.  The harness below emulates one lane group of the element
-split (G = 3): four threads, one per lane, meet at a barrier for each
-shuffle, so the split runs its real arithmetic and exchanges.  Small
-sizes: an emulated permutation takes well under a second.  The card runs
-the same code (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+warp shuffles.  The harness below emulates the element split (G = 3) in
+two ways: one lane group, three threads, one per lane; or whole warps of
+32 threads placed by the kernels' own mapping (``split_item``,
+``split_stores``: ten groups, two spare lanes, a partial last warp and one
+warp past the end).  The threads meet at a barrier for each shuffle, so
+the split runs its real arithmetic and exchanges.  Small sizes: an
+emulated permutation takes well under a second in a group, longer in a
+warp.  The card runs the same code (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 
 Tolerance: none, every comparison is integer-exact.
 """
@@ -38,33 +42,49 @@ HARNESS = r"""
 #define __forceinline__ inline
 #define __constant__
 static std::barrier<>* g_bar;
-static uint32_t g_slots[2][8];
+static uint32_t g_slots[2][32];
 thread_local int emu_lane, emu_phase;
-inline uint32_t __shfl_sync(uint32_t, uint32_t v, int src, int width) {
+inline uint32_t __shfl_sync(uint32_t, uint32_t v, int src, int width = 32) {
   int ph = emu_phase; emu_phase ^= 1;
   g_slots[ph][emu_lane] = v; g_bar->arrive_and_wait(); return g_slots[ph][src % width];
 }
 #include "poseidon.cuh"
 using namespace fr254;
 
-template <typename F> void run_split(F f) {
-  std::barrier<> bar(SPLIT_WIDTH); g_bar = &bar;
+// G: 1 (one thread a state), 3 (one lane group, three threads, item by
+// item) or WARPS (whole warps placed by split_item / split_stores, ten
+// items a warp and one warp past the last).
+constexpr int WARPS = 32;
+template <typename F> void run_threads(int n, F f) {
+  std::barrier<> bar(n); g_bar = &bar;
   std::vector<std::thread> ts;
-  for (int l = 0; l < SPLIT_WIDTH; l++) ts.emplace_back([&, l] { emu_lane = l; emu_phase = 0; f(l); });
+  for (int l = 0; l < n; l++) ts.emplace_back([&, l] { emu_lane = l; emu_phase = 0; f(l); });
   for (auto& t : ts) t.join();
+}
+// f(lane, item) -> result of the item's group; put(item, result) stores.
+template <typename F, typename P> void run_split(int64_t count, int G, F f, P put) {
+  if (G == SPLIT_LANES) {
+    run_threads(SPLIT_LANES, [&](int l) { for (int64_t b = 0; b < count; b++) {
+      auto r = f(l, b); if (l == 0) put(b, r); } });
+    return;
+  }
+  const int64_t warps = (count + SPLIT_GROUPS - 1) / SPLIT_GROUPS + 1;
+  for (int64_t w = 0; w < warps; w++)
+    run_threads(WARP_LANES, [&](int l) { const int64_t t = w * WARP_LANES + l;
+      const int64_t b = split_item(t, count); if (b < 0) return;
+      auto r = f(l, b); if (split_stores(t, count)) put(b, r); });
 }
 template <typename E> void sponge_rows(const E* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) {
   const int64_t w = INPUT_WORDS<E>;
   if (G == 1) { for (int64_t b = 0; b < batch; b++) store(out + b * NL, sponge_row(in + b * n * w, n, ds)); return; }
-  run_split([&](int l) { for (int64_t b = 0; b < batch; b++) { SplitLane sl = make_split_lane(l);
-    Fe r = sponge_row_split(in + b * n * w, n, ds, sl); if (l == 0) store(out + b * NL, r); } });
+  run_split(batch, G, [&](int l, int64_t b) { return sponge_row_split(in + b * n * w, n, ds, make_split_lane(l)); },
+            [&](int64_t b, const Fe& r) { store(out + b * NL, r); });
 }
 void verify_rows(const int32_t* pos, const int64_t* sib, const int64_t* leaf, const int64_t* root, uint8_t* ok, int64_t k, int h, int arity, int G) {
   const int64_t w = 2 * NL;
   if (G == 1) { for (int64_t t = 0; t < k; t++) ok[t] = verify_proof(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, root, h, arity); return; }
-  run_split([&](int l) { for (int64_t t = 0; t < k; t++) { SplitLane sl = make_split_lane(l);
-    bool same = verify_proof_split(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, root, h, arity, sl);
-    if (l == 0) ok[t] = same; } });
+  run_split(k, G, [&](int l, int64_t t) { return verify_proof_split(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, root, h, arity, make_split_lane(l)); },
+            [&](int64_t t, bool same) { ok[t] = same; });
 }
 extern "C" {
 void h_set_rc(const uint32_t* rc) { memcpy(ROUND_CONSTANTS, rc, sizeof(ROUND_CONSTANTS)); }
@@ -211,6 +231,48 @@ def test_verify_body_under_each_lane_count(lanes, host_kernels):
     assert got == want.tolist() == [True, False, False]
 
 
+# The harness's G for whole warps placed by the kernels' mapping.
+WARPS = 32
+
+
+@pytest.mark.parametrize("body,size", [("k1", 2), ("k1", 3), ("k3", 2),
+                                       ("k3", 3)])
+def test_split_in_whole_warps_places_every_item(body, size, host_kernels):
+    """The element split as the kernels place it (``split_item``,
+    ``split_stores``): whole warps of 32 emulated threads, ten lane groups
+    a warp, lanes 30 and 31 mirroring the last group, over 13 items (a full
+    warp, then a partial one of three) and a warp past the end.  K1 on
+    rows of 2 and 3 inputs (an odd count), K3 at arity 2 and 3 with
+    tampered leaves and an out-of-range position, each item against the
+    one-group run and the plain sponge or verify; nothing is written past
+    the last item."""
+    rng = np.random.default_rng(95 + size)
+    count = 13
+    if body == "k1":
+        g = rnd(rng, (count, size))
+        g[11, size - 1, 2] += 1 << 16  # non-canonical digit: by value
+        got = run_k1(host_kernels, g, WARPS)
+        assert torch.equal(got, poseidon.hash_multiple(g))
+        assert torch.equal(got, run_k1(host_kernels, g, 3))
+        return
+    arity = size
+    levels = merkle.build_tree_levels(rnd(rng, (arity + 2,)), arity,
+                                      device=CPU)
+    idx = [i % (arity + 2) for i in range(count)]
+    pos, sib = merkle.generate_proofs(levels, arity, idx)
+    leaves = levels[0][idx].clone()
+    pos = pos.to(torch.int64)
+    leaves[4, 0] ^= 1
+    leaves[11, 3] ^= 1
+    pos[7, 0] = arity + 4  # out of range: the digest is dropped
+    root = levels[-1][0]
+    want = merkle._verify_plain(pos, sib, leaves, root, arity).tolist()
+    assert want.count(False) == 3
+    assert run_k3_digits(host_kernels, pos, sib, leaves, root, arity,
+                         WARPS) == want
+    assert run_k3_digits(host_kernels, pos, sib, leaves, root, arity, 3) == want
+
+
 def test_raw_permutation_body(host_kernels):
     rng = np.random.default_rng(70)
     st = rnd(rng, (2, 3))
@@ -296,13 +358,19 @@ def test_k4_body_against_plain_jax_and_oracle(form, host_kernels):
     assert torch.equal(got[below], torch.from_numpy(jax_out.astype(np.int64)))
 
 
+# Rows past the last item that a body must leave as they are.
+TAIL = 10
+
+
 def run_k1(host_kernels, g, lanes):
-    """K1's body under ``lanes`` on ``[B, n, 16]`` digit rows, ds = 3."""
+    """K1's body under ``lanes`` on ``[B, n, 16]`` digit rows, ds = 3;
+    nothing is written past row B."""
     b, n = g.shape[:2]
     x = limbs(g)
-    out = np.zeros((b, 8), np.uint32)
+    out = np.full((b + TAIL, 8), 0xABABABAB, np.uint32)
     host_kernels.h_sponge(x.ctypes.data, out.ctypes.data, b, n, 3, lanes)
-    return digits_of(out)
+    assert (out[b:] == 0xABABABAB).all()
+    return digits_of(np.ascontiguousarray(out[:b]))
 
 
 def run_k1_digits(host_kernels, g, lanes):
@@ -342,14 +410,15 @@ def test_digit_input_sponge_body_equals_the_limb_body(arity, lanes,
 
 
 @pytest.mark.parametrize("body,size", [("k1", w) for w in range(1, 9)]
-                         + [("k3", a) for a in (2, 4, 8)])
+                         + [("k3", a) for a in (2, 3, 4, 8)])
 def test_one_thread_body_equals_the_split_and_the_oracle(body, size,
                                                          host_kernels):
     """K1 and K3 at G = 1 (the permutation body K4 runs) against G = 3 (the
     element split).  K1 at widths 1-8 (the arity-8 sponge's four
     permutations) on rows holding 0, 1, p - 1, p and 2^256 - 1 and a digit
     d + 2^16, also against the plain sponge and the oracle; K3 at arity 2,
-    4 and 8 on valid and tampered proofs, also against the plain verify."""
+    3, 4 and 8 on valid and tampered proofs, also against the plain
+    verify."""
     from cuzk_tpu import oracle
 
     rng = np.random.default_rng(72 + size)
@@ -384,20 +453,21 @@ def test_one_thread_body_equals_the_split_and_the_oracle(body, size,
 def run_k3_digits(host_kernels, pos, sib, leaves, root, arity, lanes):
     """K3's body under ``lanes``, one verdict a proof: int32 positions as
     they are (the body clamps them), int64 digits read by value, the root
-    compared digit by digit."""
+    compared digit by digit; nothing is written past proof k."""
     k, h = pos.shape
     p = np.ascontiguousarray(pos.to(torch.int32).numpy())
     s, lv, r = (np.ascontiguousarray(t.numpy().astype(np.int64))
                 for t in (sib, leaves, root))
-    ok = np.zeros(k, np.uint8)
+    ok = np.full(k + TAIL, 7, np.uint8)
     host_kernels.h_verify_digits(p.ctypes.data, s.ctypes.data, lv.ctypes.data,
                                  r.ctypes.data, ok.ctypes.data, k, h, arity,
                                  lanes)
-    return ok.astype(bool).tolist()
+    assert (ok[k:] == 7).all()
+    return ok[:k].astype(bool).tolist()
 
 
 @pytest.mark.parametrize("lanes", [1, 3])
-@pytest.mark.parametrize("arity", [2, 4, 8])
+@pytest.mark.parametrize("arity", [2, 3, 4, 8])
 def test_digit_input_verify_body_equals_the_plain_verify(arity, lanes,
                                                          host_kernels):
     """K3's body (leaf and siblings read by value, the root compared digit

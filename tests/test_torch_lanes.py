@@ -103,39 +103,49 @@ def test_cpu_by_name_or_by_tensor_runs_the_plain_path(no_cuda):
     assert engine.TorchPoseidonEngine(device=CPU).device.type == "cpu"
 
 
-@pytest.mark.parametrize("resident", [1, 7, 1024, 67_584, 84_480, 101_376])
-def test_choose_lanes_is_one_at_a_wave_and_more_below(resident):
+@pytest.mark.parametrize("sms", [1, 7, 66, 114, 132, 144])
+def test_choose_lanes_is_one_at_a_wave_and_more_below(sms):
+    """The split while a launch puts at most two of its warps (ten states
+    each) on each of an SM's four schedulers, SMs x 80 states; one thread a
+    state above it: on any SM count."""
     choose = poseidon_cuda.choose_lanes
-    for batch in (resident, resident + 1, 2 * resident, 10 * resident):
-        assert choose(batch, resident) == 1
-    for batch in range(1, resident // poseidon_cuda.SPLIT_FRACTION + 1,
-                       max(1, resident // 50)):
-        assert choose(batch, resident) == poseidon_cuda.SPLIT_LANES > 1
-    for batch in (resident // 4, resident // 2, resident - 1):
-        if batch * poseidon_cuda.SPLIT_FRACTION > resident:
-            assert choose(batch, resident) == 1
+    capacity = (sms * poseidon_cuda.SCHEDULERS_PER_SM
+                * poseidon_cuda.SPLIT_GROUPS
+                * poseidon_cuda.SPLIT_WARPS_PER_SCHEDULER)
+    assert capacity == sms * 80
+    for batch in list(range(1, capacity, max(1, capacity // 50))) + [capacity]:
+        assert choose(batch, sms) == poseidon_cuda.SPLIT_LANES > 1
+    for batch in (capacity + 1, capacity + 40, 2 * capacity, 10 * capacity,
+                  768 * sms):
+        assert choose(batch, sms) == 1
     assert poseidon_cuda.SPLIT_LANES in poseidon_cuda.LANES
 
 
 def test_choose_lanes_at_the_swept_shapes():
-    """The sweep's winners on an H100 (101,376 sponge and 84,480 verify
-    states a wave): the split for 64-4,096 arity groups or pairs and for
-    500-2,500 proofs, one thread from 6,144 groups and 5,000 proofs."""
+    """The sweep's winners on an H100 (132 SMs; chip_smoke.py phase 14):
+    the split up to two warps a scheduler, 10,560 states, so for 64-10,560
+    arity groups or pairs and for 500-10,560 proofs (5,000 among them);
+    one thread from 10,561 states, at 12,288 and 16,384 groups and 13,200
+    and 50,000 proofs.  On a card of 114 SMs (an H100 PCIe) the split stops
+    at 9,120 states."""
     choose = poseidon_cuda.choose_lanes
-    assert [choose(b, 101_376) for b in
-            (64, 1024, 4096, 6144, 8192, 16384, 65536, 262144)] \
-        == [3, 3, 3, 1, 1, 1, 1, 1]
-    assert [choose(b, 84_480) for b in (500, 2500, 5000, 50000)] == [3, 3, 1, 1]
+    assert [choose(b, 132) for b in
+            (64, 1024, 4096, 5280, 5281, 6144, 8192, 10560, 10561, 12288,
+             16384, 65536, 262144)] \
+        == [3, 3, 3, 3, 3, 3, 3, 3, 1, 1, 1, 1, 1]
+    assert [choose(b, 132) for b in
+            (500, 2500, 4000, 5000, 5600, 7920, 10560, 10561, 13200, 50000)] \
+        == [3, 3, 3, 3, 3, 3, 3, 1, 1, 1]
+    assert [choose(b, 114) for b in (5000, 9120, 9121, 10560)] == [3, 3, 1, 1]
 
 
 def test_lanes_argument_is_checked():
     assert poseidon_cuda.LANES == (1, poseidon_cuda.SPLIT_LANES)
     for forced in (0, 2, 4, 8):
         with pytest.raises(errors.ValidationError, match="lanes"):
-            poseidon_cuda._lanes(forced, 10, torch.device("cuda", 0), "sponge")
+            poseidon_cuda._lanes(forced, 10, torch.device("cuda", 0))
     for forced in poseidon_cuda.LANES:
-        assert poseidon_cuda._lanes(forced, 10, torch.device("cuda", 0),
-                                    "sponge") == forced
+        assert poseidon_cuda._lanes(forced, 10, torch.device("cuda", 0)) == forced
 
 
 @pytest.mark.parametrize("arity", [2, 4])

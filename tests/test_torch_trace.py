@@ -168,14 +168,14 @@ def test_launches_are_the_sessions_change_of_launch_counts(monkeypatch):
 def _fake_launches(monkeypatch):
     """K1's and K3's launchers on CPU tensors with every kernel call a
     no-op: the wrappers still pick G from the batch, count the launch and
-    record their counters.  A card holds 84,480 states at G = 1."""
+    record their counters.  The card has 132 SMs."""
     monkeypatch.setattr(poseidon_cuda._build, "kernels",
                         lambda: types.SimpleNamespace(lib=types.SimpleNamespace(
                             cuzk_sponge=None, cuzk_sponge_digits=None,
                             cuzk_verify_digits=None)))
     monkeypatch.setattr(poseidon_cuda, "_check_limbs", lambda *a: None)
     monkeypatch.setattr(poseidon_cuda, "_launch", lambda *a: None)
-    monkeypatch.setattr(poseidon_cuda, "resident_states", lambda *a: 84_480)
+    monkeypatch.setattr(poseidon_cuda, "_multiprocessors", lambda *a: 132)
 
     def calls():
         i32 = torch.int32
