@@ -988,16 +988,25 @@ def main() -> None:
         le[3::17, 2] ^= 1
         se[7::19, 0, 0, 1] ^= 1
         want = merkle._verify_plain(pe, se, le, small_tree[-1][0], a_)
+        # One root a proof ([k, 16]): every fifth row altered.
+        roots_e = small_tree[-1][0].expand(len(idx_e), 16).clone()
+        roots_e[2::5, 0] ^= 1
+        want_r = merkle._verify_plain(pe, se, le, roots_e, a_)
         for g in pc.LANES:
             for size in k3_edges:
                 got = pc.verify_digits(pe[:size], se[:size], le[:size],
                                        small_tree[-1][0], a_, lanes=g)
                 k3_err = max(k3_err, max_abs_err(got, want[:size]))
+                got = pc.verify_digits(pe[:size], se[:size], le[:size],
+                                       roots_e[:size], a_, lanes=g)
+                k3_err = max(k3_err, max_abs_err(got, want_r[:size]))
         check(bool(want.any()) and not bool(want.all()), "K3 edge batch mixes")
+        check(bool((want & ~want_r).any()), "K3 per-proof roots reject")
     check(k3_err == 0, "K3 disagrees with the plain verify")
     print(f"phase 6 verify: 5,000 proofs all true, tampered 10/20/30 false, "
           f"K3 = plain at every G {list(pc.LANES)} (auto G = {k3_lanes}) and "
-          f"at batches {k3_edges} over arities 2, 3, 4, 8; warm verify "
+          f"at batches {k3_edges} over arities 2, 3, 4, 8, with one root and "
+          f"with a root a proof; warm verify "
           f"{verify_ms:.3f} ms; K3 alone at G = {k3_lanes} {k3_alone_ms:.4f} "
           f"ms on {name_power}", flush=True)
     # The 50K build's K1 launches, one per level, each timed alone.

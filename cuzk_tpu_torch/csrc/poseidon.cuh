@@ -179,6 +179,15 @@ __device__ __forceinline__ bool root_matches(const Fe& cur, const int64_t* root)
   return diff == 0;
 }
 
+// K3's root for proof t: one root shared by every proof of the batch
+// (root_stride 0, a [16] tensor) or one a proof (root_stride 16 words, a
+// [k, 16] tensor), so that proofs of many trees go in one launch.
+__device__ __forceinline__ const int64_t* proof_root(const int64_t* root,
+                                                     int64_t root_stride,
+                                                     int64_t t) {
+  return root + t * root_stride;
+}
+
 // A position clamped to [-1, arity]: every position outside [0, arity)
 // builds the same group as -1 or arity.
 __device__ __forceinline__ int clamp_position(int p, int arity) {

@@ -137,16 +137,18 @@ __global__ void __launch_bounds__(block_threads(G, SPONGE_THREADS), min_blocks(G
 }
 
 // K3: fused per-proof verify on the public digits.  pos [k, h] int32,
-// sib [k, h, a-1, 16], leaf [k, 16], root [16] int64 -> ok [k], one byte a
-// verdict (a torch.bool tensor); thread or group t verifies proof t.  The
-// leaf and siblings are read by value and the root compared digit by digit
-// (poseidon.cuh::verify_proof), so that a verify of proofs held as digits
-// converts nothing.  Offsets are int64.
+// sib [k, h, a-1, 16], leaf [k, 16] int64, root [16] or [k, 16] int64
+// (root_stride 0 or 16 words, poseidon.cuh::proof_root) -> ok [k], one byte
+// a verdict (a torch.bool tensor); thread or group t verifies proof t
+// against its root.  The leaf and siblings are read by value and the root
+// compared digit by digit (poseidon.cuh::verify_proof), so that a verify of
+// proofs held as digits converts nothing.  Offsets are int64.
 template <int G>
 __device__ __forceinline__ void verify_item(const int32_t* __restrict__ pos,
                                             const int64_t* __restrict__ sib,
                                             const int64_t* __restrict__ leaf,
                                             const int64_t* __restrict__ root,
+                                            int64_t root_stride,
                                             uint8_t* __restrict__ ok, int64_t k,
                                             int h, int arity) {
   constexpr int NW = 2 * NL;
@@ -155,12 +157,13 @@ __device__ __forceinline__ void verify_item(const int32_t* __restrict__ pos,
   if (t < 0) return;
   const int32_t* p = pos + t * h;
   const int64_t* s = sib + t * h * (int64_t)(arity - 1) * NW;
+  const int64_t* r = proof_root(root, root_stride, t);
   bool same;
   if constexpr (G == SPLIT_LANES) {
-    same = verify_proof_split(p, s, leaf + t * NW, root, h, arity,
+    same = verify_proof_split(p, s, leaf + t * NW, r, h, arity,
                               make_split_lane(warp_lane()));
   } else {
-    same = verify_proof(p, s, leaf + t * NW, root, h, arity);
+    same = verify_proof(p, s, leaf + t * NW, r, h, arity);
   }
   if (at.stores) ok[t] = same ? 1 : 0;
 }
@@ -171,9 +174,9 @@ __global__ void __launch_bounds__(block_threads(G, VERIFY_THREADS), min_blocks(G
                          const int64_t* __restrict__ sib,
                          const int64_t* __restrict__ leaf,
                          const int64_t* __restrict__ root,
-                         uint8_t* __restrict__ ok, int64_t k, int h,
-                         int arity) {
-  verify_item<G>(pos, sib, leaf, root, ok, k, h, arity);
+                         int64_t root_stride, uint8_t* __restrict__ ok,
+                         int64_t k, int h, int arity) {
+  verify_item<G>(pos, sib, leaf, root, root_stride, ok, k, h, arity);
 }
 
 // K4: the raw batched permutation on states of any 256-bit values, so round
@@ -298,11 +301,11 @@ int launch_sponge_lanes(const E* in, uint32_t* out, int64_t batch, int n,
 
 template <int G>
 int launch_verify(const int32_t* pos, const int64_t* sib, const int64_t* leaf,
-                  const int64_t* root, uint8_t* ok, int64_t k, int h, int arity,
-                  cudaStream_t stream) {
+                  const int64_t* root, int64_t root_stride, uint8_t* ok,
+                  int64_t k, int h, int arity, cudaStream_t stream) {
   constexpr int threads = block_threads(G, VERIFY_THREADS);
   verify_digits_kernel<G><<<blocks_for_items(k, G, threads), threads, 0, stream>>>(
-      pos, sib, leaf, root, ok, k, h, arity);
+      pos, sib, leaf, root, root_stride, ok, k, h, arity);
   return (int)cudaGetLastError();
 }
 
@@ -342,15 +345,20 @@ int cuzk_sponge_digits(const int64_t* in, uint32_t* out, int64_t batch, int n,
   return launch_sponge_lanes(in, out, batch, n, ds, lanes, stream);
 }
 
-// lanes: G, as for the sponge.
+// lanes: G, as for the sponge; root_stride: 0 for one root, 16 for one a
+// proof.
 int cuzk_verify_digits(const int32_t* pos, const int64_t* sib,
-                       const int64_t* leaf, const int64_t* root, uint8_t* ok,
-                       int64_t k, int h, int arity, int lanes, void* stream) {
+                       const int64_t* leaf, const int64_t* root,
+                       int64_t root_stride, uint8_t* ok, int64_t k, int h,
+                       int arity, int lanes, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (lanes) {
-    case 1: return launch_verify<1>(pos, sib, leaf, root, ok, k, h, arity, s);
+    case 1:
+      return launch_verify<1>(pos, sib, leaf, root, root_stride, ok, k, h,
+                              arity, s);
     case SPLIT_LANES:
-      return launch_verify<SPLIT_LANES>(pos, sib, leaf, root, ok, k, h, arity, s);
+      return launch_verify<SPLIT_LANES>(pos, sib, leaf, root, root_stride, ok,
+                                        k, h, arity, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

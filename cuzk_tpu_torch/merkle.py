@@ -290,14 +290,15 @@ def _insert_at_position(current, pos, sibs, arity: int) -> torch.Tensor:
 
 def _verify_plain(positions, siblings, leaves, root, arity: int) -> torch.Tensor:
     """Plain version of the verify kernel: all proofs level by level, one
-    batched sponge per level, then a digit-wise compare with the root."""
+    batched sponge per level, then a digit-wise compare with the root,
+    ``[16]`` for every proof or ``[k, 16]`` row by row."""
     current = leaves
     for lvl in range(positions.shape[1]):
         group = _insert_at_position(
             current, positions[:, lvl], siblings[:, lvl], arity
         )
         current = poseidon.hash_multiple(group)
-    return (current == root[None, :]).all(dim=-1)
+    return (current == root).all(dim=-1)
 
 
 def _verify_cuda(positions, siblings, leaves, root, arity: int) -> torch.Tensor:
@@ -306,11 +307,12 @@ def _verify_cuda(positions, siblings, leaves, root, arity: int) -> torch.Tensor:
     by value and compares the root digit by digit with the recomputed
     digest's canonical digits, so a root with a digit outside [0, 2^16)
     never verifies; with h = 0 the leaf is compared with the root digit by
-    digit, with no launch.  Int32 positions go to the kernel as they are
-    (it clamps them to [-1, arity]); others are clamped before the int32
-    cast, so that a position 2^32 + p does not alias p."""
+    digit, with no launch.  One launch whether ``root`` is ``[16]`` or
+    ``[k, 16]``.  Int32 positions go to the kernel as they are (it clamps
+    them to [-1, arity]); others are clamped before the int32 cast, so that
+    a position 2^32 + p does not alias p."""
     if positions.shape[1] == 0:
-        return (leaves == root[None, :]).all(dim=-1)
+        return (leaves == root).all(dim=-1)
     return poseidon_cuda.verify_digits(
         positions.contiguous(), siblings.contiguous(), leaves.contiguous(),
         root.contiguous(), arity)
@@ -318,7 +320,8 @@ def _verify_cuda(positions, siblings, leaves, root, arity: int) -> torch.Tensor:
 
 def _check_proof_shapes(positions, siblings, leaves, root, arity: int) -> None:
     """Raise unless the shapes are positions ``[k, h]``, siblings
-    ``[k, h, arity-1, 16]``, leaves ``[k, 16]`` and root ``[16]``."""
+    ``[k, h, arity-1, 16]``, leaves ``[k, 16]`` and root ``[16]`` (one root
+    for every proof) or ``[k, 16]`` (a root a proof)."""
     if len(positions.shape) != 2:
         raise errors.ValidationError(
             f"positions must be [k, h], got {tuple(positions.shape)}"
@@ -327,7 +330,7 @@ def _check_proof_shapes(positions, siblings, leaves, root, arity: int) -> None:
     if (
         tuple(siblings.shape) != (k, h, arity - 1, fr.NDIGITS)
         or tuple(leaves.shape) != (k, fr.NDIGITS)
-        or tuple(root.shape) != (fr.NDIGITS,)
+        or tuple(root.shape) not in ((fr.NDIGITS,), (k, fr.NDIGITS))
     ):
         raise errors.ValidationError(
             f"proof shapes disagree: positions {tuple(positions.shape)}, "
@@ -340,9 +343,11 @@ def verify_proofs(positions, siblings, leaves, root, arity: int,
                   device=None) -> torch.Tensor:
     """Per-proof validity ``[k] bool`` (merkle_tree.cpp:214-254).
     ``positions [k, h]``, ``siblings [k, h, a-1, 16]``, ``leaves [k, 16]``,
-    ``root [16]``, all moved to ``device``, else to the leaves' device (the
-    first tensor's, the card for host data): the fused verify kernel on
-    the card, the plain level-by-level path on the CPU."""
+    ``root [16]`` (every proof against one root) or ``[k, 16]`` (proof i
+    against row i: proofs of many trees in one call), all moved to
+    ``device``, else to the leaves' device (the first tensor's, the card
+    for host data): the fused verify kernel on the card, the plain
+    level-by-level path on the CPU."""
     with trace.span("verify_proofs"):
         errors.validate_range(arity, MIN_ARITY, MAX_ARITY, "arity")
         device = resolve_device(device, leaves, positions, siblings, root)
@@ -358,7 +363,7 @@ def verify_proofs(positions, siblings, leaves, root, arity: int,
 
 def verify_proof(positions, siblings, leaf, root, arity: int,
                  device=None) -> bool:
-    """Single-proof verification."""
+    """Single-proof verification (``root`` ``[16]`` or ``[1, 16]``)."""
     leaf = fr.as_digits(leaf, device=resolve_device(device, leaf, positions,
                                                     siblings, root))
     ok = verify_proofs(
@@ -740,7 +745,8 @@ def _suspect_mask(bad: np.ndarray, wire: _Wire, k: int):
 
 def _exact(positions, siblings, leaves, root, arity: int,
            device: torch.device) -> np.ndarray:
-    """The per-proof path (the verify kernel on a card) as host bools."""
+    """The per-proof path (the verify kernel on a card) as host bools;
+    ``root`` ``[16]`` or ``[k, 16]``."""
     return verify_proofs(
         torch.as_tensor(positions, device=device),
         fr.as_digits(siblings, device=device),
@@ -794,8 +800,10 @@ def _on_card(*xs) -> bool:
 def _verdicts(positions, siblings, leaves, root, arity: int,
               dedupe: Optional[bool], device):
     """:func:`verify_each`'s verdicts: a ``[k]`` bool tensor on the card for
-    proofs already there, else a host array.  Counts the route it takes:
-    ``verify.route.card``, ``.dedup`` or ``.exact``."""
+    proofs already there, else a host array.  A host batch with a root a
+    proof takes the exact route: the dedup schedule shares one tree's
+    upper paths.  Counts the route it takes: ``verify.route.card``,
+    ``.dedup`` or ``.exact``."""
     if dedupe is not True and _on_card(positions, siblings, leaves):
         trace.count("verify.route.card")
         return verify_proofs(positions, siblings, leaves, root, arity,
@@ -806,7 +814,7 @@ def _verdicts(positions, siblings, leaves, root, arity: int,
     k, h = pos.shape
     if dedupe is None:
         dedupe = k >= 64 and h >= 2
-    if dedupe and h >= 1 and k >= 2:
+    if dedupe and h >= 1 and k >= 2 and rt.ndim == 1:
         res = _dedup_results(pos, sib, lv, rt, arity, device)
         if res is not None:
             trace.count("verify.route.dedup")
@@ -821,13 +829,16 @@ def verify_each(positions, siblings, leaves, root, arity: int,
     reference kernel's result (merkle_tree_cuda.cu:67-118, before the
     host's all_of).  Inputs are numpy arrays or tensors; the work runs on
     ``device``, else on the first tensor argument's device, else on the
-    card.  Proofs already on the card (positions, siblings and leaves) take
-    the per-proof path on ``device``, by default where they lie (one launch
-    of the verify kernel, no host copy), unless ``dedupe=True`` asks for
-    the host schedule.  Host batches that
-    share tree nodes (``dedupe`` defaults to ``k >= 64 and h >= 2``) take
-    the deduplicated schedule with failure isolation, built on the host;
-    the rest, and every batch the gates decline, the per-proof path."""
+    card.  ``root`` is ``[16]``, one tree's root for every proof, or
+    ``[k, 16]``, a root a proof (proofs of many trees, each checked against
+    its own).  Proofs already on the card (positions, siblings and leaves)
+    take the per-proof path on ``device``, by default where they lie (one
+    launch of the verify kernel, no host copy), unless ``dedupe=True`` asks
+    for the host schedule.  Host batches of one root that share tree nodes
+    (``dedupe`` defaults to ``k >= 64 and h >= 2``) take the deduplicated
+    schedule with failure isolation, built on the host; the rest, every
+    host batch with a root a proof, and every batch the gates decline, the
+    per-proof path."""
     with trace.span("verify_each"):
         out = _verdicts(positions, siblings, leaves, root, arity, dedupe,
                         device)

@@ -111,7 +111,7 @@ class Kernels:
             "cuzk_sponge": [p, p, i64, i32, u32, i32, p],
             "cuzk_sponge_digits": [p, p, i64, i32, u32, i32, p],
             "cuzk_resident_states": [i32, i32, ctypes.POINTER(ctypes.c_int)],
-            "cuzk_verify_digits": [p, p, p, p, p, i64, i32, i32, i32, p],
+            "cuzk_verify_digits": [p, p, p, p, i64, p, i64, i32, i32, i32, p],
             "cuzk_permutation_digits": [p, p, i64, p],
             "cuzk_fr_op_digits": [i32, p, p, u32, p, i64, p],
         }

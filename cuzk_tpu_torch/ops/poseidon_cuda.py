@@ -48,7 +48,9 @@ which kernels its main path went through.  K1 and K3's launchers are the
 spans ``cuzk.k1`` and ``cuzk.k3`` (:mod:`cuzk_tpu_torch.utils.trace`), and
 count each launch under the G it took, ``k1.lanes.<G>`` and
 ``k3.lanes.<G>``, while a profiler session records; a launch of K1's
-digit form also counts ``k1.input.digits``.
+digit form also counts ``k1.input.digits``, and each K3 launch its serial
+permutations a proof, ``k3.steps``, and, where it reads a root a proof,
+``k3.roots.per_proof``.
 """
 
 from __future__ import annotations
@@ -416,15 +418,22 @@ def verify_digits(positions: torch.Tensor, siblings: torch.Tensor,
                   leaves: torch.Tensor, root: torch.Tensor,
                   arity: int, lanes=None) -> torch.Tensor:
     """K3 on digits: ``positions [k, h]``, ``siblings [k, h, a-1, 16]``,
-    ``leaves [k, 16]`` and ``root [16]`` int64 on the card, h >= 1 ->
-    ``[k] bool``, the plain verify's verdicts.  The kernel reads the leaf
-    and siblings by value, as :func:`fr.digits_to_limbs` does, and compares
-    the root digit by digit with the recomputed digest's canonical digits,
-    so a root digit outside [0, 2^16) never verifies; nothing is converted
-    before the launch.  Int32 positions go to the kernel as they are (it
-    clamps each to [-1, arity]); any other dtype is clamped first, so that
-    2^32 + p does not alias p in the cast.  ``lanes`` forces G (one of
-    :data:`LANES`); by default :func:`choose_lanes` picks it."""
+    ``leaves [k, 16]`` and ``root`` int64 on the card, h >= 1 -> ``[k]
+    bool``, the plain verify's verdicts.  ``root`` is ``[16]``, one root
+    for every proof, or ``[k, 16]``, proof t against row t (proofs of many
+    trees in one launch): the kernel reads it with a stride of 0 or 16
+    words, from its shape.  The kernel reads the leaf and siblings by
+    value, as :func:`fr.digits_to_limbs` does, and compares the root digit
+    by digit with the recomputed digest's canonical digits, so a root digit
+    outside [0, 2^16) never verifies; nothing is converted before the
+    launch.  Int32 positions go to the kernel as they are (it clamps each
+    to [-1, arity]); any other dtype is clamped first, so that 2^32 + p
+    does not alias p in the cast.  ``lanes`` forces G (one of
+    :data:`LANES`); by default :func:`choose_lanes` picks it.
+
+    While a profiler session records, each launch counts ``k3.lanes.<G>``,
+    ``k3.steps`` (h x ceil(arity / 2), the serial permutations of one
+    proof) and, with a root a proof, ``k3.roots.per_proof``."""
     if positions.dtype != torch.int32:
         positions = positions.clamp(-1, arity).to(torch.int32)
     with trace.span("k3"):
@@ -432,7 +441,7 @@ def verify_digits(positions: torch.Tensor, siblings: torch.Tensor,
         _check_limbs(positions, "positions", 2)
         _check_limbs(siblings, "siblings", 4, torch.int64)
         _check_limbs(leaves, "leaves", 2, torch.int64)
-        _check_limbs(root, "root", 1, torch.int64)
+        _check_limbs(root, "root", root.dim(), torch.int64)
         k, h = positions.shape
         if len({t.device for t in (positions, siblings, leaves, root)}) != 1:
             raise ValidationError("proof tensors must lie on one device")
@@ -441,21 +450,27 @@ def verify_digits(positions: torch.Tensor, siblings: torch.Tensor,
         if h < 1 or (
             tuple(siblings.shape) != (k, h, arity - 1, ND)
             or tuple(leaves.shape) != (k, ND)
-            or tuple(root.shape) != (ND,)
+            or tuple(root.shape) not in ((ND,), (k, ND))
         ):
             raise ValidationError(
                 f"proof tensors disagree: positions {tuple(positions.shape)}, "
                 f"siblings {tuple(siblings.shape)}, leaves {tuple(leaves.shape)}, "
                 f"root {tuple(root.shape)}, arity {arity}"
             )
+        per_proof = root.dim() == 2
         ok = torch.empty(k, dtype=torch.bool, device=leaves.device)
         if k:
             g = _lanes(lanes, k, leaves.device)
             _launch(kernels, kernels.lib.cuzk_verify_digits, leaves.device,
                     positions.data_ptr(), siblings.data_ptr(), leaves.data_ptr(),
-                    root.data_ptr(), ok.data_ptr(), k, h, arity, g)
+                    root.data_ptr(), ND if per_proof else 0, ok.data_ptr(), k,
+                    h, arity, g)
             launch_counts["verify"] += 1
             trace.count(f"k3.lanes.{g}")
+            trace.count("k3.steps",
+                        h * ((arity + poseidon.RATE - 1) // poseidon.RATE))
+            if per_proof:
+                trace.count("k3.roots.per_proof")
         return ok
 
 

@@ -168,6 +168,63 @@ def test_split_at_its_capacity_edge(kernel, cuda_device):
     assert want.any() and not want.all()
 
 
+def test_verify_with_a_root_a_proof_at_windowpost_scale(cuda_device):
+    """K3 with ``root [k, 16]`` on a WindowPoSt partition's shape: 2,349
+    sparse arity-8 sector trees of 10 levels (``zkbench/reference/post.py``,
+    each level hashed by K1), 10 proofs a sector, each against its own
+    sector's root; tampered leaves and siblings, proofs paired with another
+    sector's root and positions out of range.  G = 1 and G = 3 agree bit
+    for bit at the split's capacity edge (10,559-10,561 proofs) and at the
+    whole 23,490; both equal the plain verify on the first and last 64
+    proofs and on every altered one; the shared root equals its [k, 16]
+    broadcast; ``verify_each`` is one launch, at G = 1 by default."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zkbench.reference import post
+    from cuzk_tpu_torch.utils import trace
+
+    ns, c, arity, h = 2349, 10, 8, 10
+    g = torch.Generator(device=cuda_device).manual_seed(619)
+    idx = torch.randint(0, arity ** h, (ns, c), generator=g, device=cuda_device)
+    pos, sib, leaves, sector_roots = post.sparse_proofs(
+        poseidon_cuda.hash_multiple_cuda, 619, torch.arange(ns), idx, arity, h)
+    roots = sector_roots.repeat_interleave(c, dim=0)
+    k = ns * c
+    assert pos.shape == (k, h) and sib.shape == (k, h, arity - 1, 16)
+    leaves[::997, 3] ^= 1
+    sib[1::1009, 9, 6, 2] ^= 4
+    roots[2::1013] = sector_roots[(torch.arange(2, k, 1013) // c + 7) % ns]
+    pos[3::1019, 4] = arity + 2
+    altered = torch.cat([torch.arange(s, k, m) for s, m in
+                         ((0, 997), (1, 1009), (2, 1013), (3, 1019))])
+    ends = torch.cat([torch.arange(64), torch.arange(k - 64, k)])
+    judged = torch.unique(torch.cat([ends, altered])).to(cuda_device)
+    want = merkle._verify_plain(pos[judged].to(torch.int64), sib[judged],
+                                leaves[judged], roots[judged], arity)
+    assert not want[torch.isin(judged, altered.to(cuda_device))].any()
+    for n in (10_559, 10_560, 10_561, k):
+        a = (pos[:n], sib[:n], leaves[:n], roots[:n], arity)
+        one = poseidon_cuda.verify_digits(*a, lanes=1)
+        assert torch.equal(poseidon_cuda.verify_digits(*a, lanes=3), one), n
+    assert torch.equal(one[judged], want)
+    assert int((~one).sum()) == torch.unique(altered).numel()
+    shared = poseidon_cuda.verify_digits(pos, sib, leaves, sector_roots[0], arity)
+    assert torch.equal(shared, poseidon_cuda.verify_digits(
+        pos, sib, leaves, sector_roots[0].expand(k, 16).contiguous(), arity))
+    # Against sector 0's root only its own proofs verify: not its tampered
+    # leaf (0), sibling (1) or position (3), but its root-swapped proof (2).
+    assert shared[2] and shared[4:c].all()
+    assert not shared[[0, 1, 3]].any() and not shared[c:].any()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert poseidon_cuda.choose_lanes(k, sms) == 1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = merkle.verify_each(pos, sib, leaves, roots, arity)
+    assert np.array_equal(got, one.cpu().numpy())
+    counters = trace.totals()["counters"]
+    assert counters["launch.verify"] == 1 and counters["k3.lanes.1"] == 1
+    assert counters["k3.roots.per_proof"] == 1 and counters["k3.steps"] == 40
+
+
 def test_tree_method_on_card_proofs_is_one_verify_launch(cuda_device,
                                                          monkeypatch):
     rng = np.random.default_rng(270)

@@ -80,17 +80,17 @@ template <typename E> void sponge_rows(const E* in, uint32_t* out, int64_t batch
   run_split(batch, G, [&](int l, int64_t b) { return sponge_row_split(in + b * n * w, n, ds, make_split_lane(l)); },
             [&](int64_t b, const Fe& r) { store(out + b * NL, r); });
 }
-void verify_rows(const int32_t* pos, const int64_t* sib, const int64_t* leaf, const int64_t* root, uint8_t* ok, int64_t k, int h, int arity, int G) {
+void verify_rows(const int32_t* pos, const int64_t* sib, const int64_t* leaf, const int64_t* root, int64_t root_stride, uint8_t* ok, int64_t k, int h, int arity, int G) {
   const int64_t w = 2 * NL;
-  if (G == 1) { for (int64_t t = 0; t < k; t++) ok[t] = verify_proof(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, root, h, arity); return; }
-  run_split(k, G, [&](int l, int64_t t) { return verify_proof_split(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, root, h, arity, make_split_lane(l)); },
+  if (G == 1) { for (int64_t t = 0; t < k; t++) ok[t] = verify_proof(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, proof_root(root, root_stride, t), h, arity); return; }
+  run_split(k, G, [&](int l, int64_t t) { return verify_proof_split(pos + t * h, sib + t * h * (arity - 1) * w, leaf + t * w, proof_root(root, root_stride, t), h, arity, make_split_lane(l)); },
             [&](int64_t t, bool same) { ok[t] = same; });
 }
 extern "C" {
 void h_set_rc(const uint32_t* rc) { memcpy(ROUND_CONSTANTS, rc, sizeof(ROUND_CONSTANTS)); }
 void h_sponge(const uint32_t* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) { sponge_rows(in, out, batch, n, ds, G); }
 void h_sponge_digits(const int64_t* in, uint32_t* out, int64_t batch, int n, uint32_t ds, int G) { sponge_rows(in, out, batch, n, ds, G); }
-void h_verify_digits(const int32_t* pos, const int64_t* sib, const int64_t* leaf, const int64_t* root, uint8_t* ok, int64_t k, int h, int arity, int G) { verify_rows(pos, sib, leaf, root, ok, k, h, arity, G); }
+void h_verify_digits(const int32_t* pos, const int64_t* sib, const int64_t* leaf, const int64_t* root, int64_t root_stride, uint8_t* ok, int64_t k, int h, int arity, int G) { verify_rows(pos, sib, leaf, root, root_stride, ok, k, h, arity, G); }
 void h_perm(const uint32_t* in, uint32_t* out, int64_t batch) {
   for (int64_t b = 0; b < batch; b++) { Vec<T> s; for (int i = 0; i < T; i++) s.e[i] = load(in + (b * T + i) * NL);
     permute_full_ilp(s); for (int i = 0; i < T; i++) store(out + (b * T + i) * NL, s.e[i]); } }
@@ -143,7 +143,7 @@ def host_kernels(tmp_path_factory):
     h.h_set_rc.argtypes = [p]
     h.h_sponge.argtypes = [p, p, i64, i32, u32, i32]
     h.h_sponge_digits.argtypes = [p, p, i64, i32, u32, i32]
-    h.h_verify_digits.argtypes = [p, p, p, p, p, i64, i32, i32, i32]
+    h.h_verify_digits.argtypes = [p, p, p, p, i64, p, i64, i32, i32, i32]
     h.h_perm.argtypes = [p, p, i64]
     h.h_fr_op.argtypes = [i32, p, p, u32, p, i64]
     h.h_perm_digits.argtypes = [p, p, i64]
@@ -271,6 +271,43 @@ def test_split_in_whole_warps_places_every_item(body, size, host_kernels):
     assert run_k3_digits(host_kernels, pos, sib, leaves, root, arity,
                          WARPS) == want
     assert run_k3_digits(host_kernels, pos, sib, leaves, root, arity, 3) == want
+
+
+@pytest.mark.parametrize("lanes", [1, 3, WARPS])
+@pytest.mark.parametrize("arity", [4, 8])
+def test_verify_body_reads_a_root_a_proof_at_its_stride(arity, lanes,
+                                                       host_kernels):
+    """K3's body with ``root [k, 16]`` read at a stride of 16 words
+    (``proof_root``): proofs of two trees, each against its own root, a
+    proof against the other tree's root, and a root with a digit >= 2^16
+    of the digest's value, against the plain verify row by row; row 0
+    repeated k times reads as the shared root does."""
+    rng = np.random.default_rng(610 + arity)
+    trees = [merkle.build_tree_levels(rnd(rng, (arity * 2,)), arity,
+                                      device=CPU) for _ in range(2)]
+    idx = [i % (arity * 2) for i in range(13)]
+    proofs = [merkle.generate_proofs(lv, arity, idx) for lv in trees]
+    which = torch.tensor([i % 2 for i in range(13)])
+    pos = torch.where(which[:, None] == 1, proofs[1][0], proofs[0][0])
+    sib = torch.where(which[:, None, None, None] == 1, proofs[1][1],
+                      proofs[0][1])
+    leaves = torch.where(which[:, None] == 1, trees[1][0][idx], trees[0][0][idx])
+    roots = torch.stack([trees[int(w)][-1][0] for w in which])
+    roots[5] = trees[0][-1][0]  # proof 5 opens the second tree
+    roots[8, 0] += 1 << 16      # the same value, a digit out of range
+    roots[8, 1] -= 1
+    assert int(roots[8, 1]) >= 0
+    want = merkle._verify_plain(pos, sib, leaves, roots, arity).tolist()
+    assert want == [i not in (5, 8) for i in range(13)]
+    assert run_k3_digits(host_kernels, pos, sib, leaves, roots, arity,
+                         lanes) == want
+    shared = merkle._verify_plain(pos, sib, leaves, roots[0], arity).tolist()
+    assert shared == [i % 2 == 0 for i in range(13)]
+    assert run_k3_digits(host_kernels, pos, sib, leaves,
+                         roots[0].expand(13, 16).contiguous(), arity,
+                         lanes) == shared
+    assert run_k3_digits(host_kernels, pos, sib, leaves, roots[0], arity,
+                         lanes) == shared
 
 
 def test_raw_permutation_body(host_kernels):
@@ -453,15 +490,17 @@ def test_one_thread_body_equals_the_split_and_the_oracle(body, size,
 def run_k3_digits(host_kernels, pos, sib, leaves, root, arity, lanes):
     """K3's body under ``lanes``, one verdict a proof: int32 positions as
     they are (the body clamps them), int64 digits read by value, the root
-    compared digit by digit; nothing is written past proof k."""
+    (``[16]``, or ``[k, 16]`` at a stride of 16 words, as the kernel reads
+    them through ``proof_root``) compared digit by digit; nothing is
+    written past proof k."""
     k, h = pos.shape
     p = np.ascontiguousarray(pos.to(torch.int32).numpy())
     s, lv, r = (np.ascontiguousarray(t.numpy().astype(np.int64))
                 for t in (sib, leaves, root))
     ok = np.full(k + TAIL, 7, np.uint8)
     host_kernels.h_verify_digits(p.ctypes.data, s.ctypes.data, lv.ctypes.data,
-                                 r.ctypes.data, ok.ctypes.data, k, h, arity,
-                                 lanes)
+                                 r.ctypes.data, 16 if r.ndim == 2 else 0,
+                                 ok.ctypes.data, k, h, arity, lanes)
     assert (ok[k:] == 7).all()
     return ok[:k].astype(bool).tolist()
 

@@ -261,6 +261,55 @@ def test_digit_form_verify_launches_count_beside_their_lanes(monkeypatch):
     assert not seen[1][1:].any()
 
 
+def test_k3_counts_its_serial_steps_and_its_per_proof_roots(monkeypatch):
+    """Each K3 launch adds h x ceil(arity / 2) to ``k3.steps``; a launch
+    with a root a proof also counts ``k3.roots.per_proof``; neither is a
+    ``launch.`` name, so ``launches.*`` reads one launch a call as before."""
+    from zkbench.metrics import launches
+
+    _fake_launches(monkeypatch)
+    i32, i64 = torch.int32, torch.int64
+
+    def k3(k, h, arity, per_proof):
+        root = torch.zeros((k, 16) if per_proof else (16,), dtype=i64)
+        poseidon_cuda.verify_digits(
+            torch.zeros((k, h), dtype=i32),
+            torch.zeros((k, h, arity - 1, 16), dtype=i64),
+            torch.zeros((k, 16), dtype=i64), root, arity)
+
+    with session():
+        with trace.span("root"):
+            k3(1_000, 8, 4, False)     # 16
+            k3(23_490, 10, 8, True)    # 40
+            k3(7, 3, 3, True)          # 6
+            k3(5, 2, 2, False)         # 2
+    c = trace.totals()["counters"]
+    assert c["k3.steps"] == 16 + 40 + 6 + 2
+    assert c["k3.roots.per_proof"] == 2
+    assert c["launch.verify"] == 4
+    assert c["k3.lanes.3"] == 3 and c["k3.lanes.1"] == 1
+    assert launches.read(types.SimpleNamespace(requests=1)) == 4.0
+
+
+def test_k3_step_us_reads_device_time_over_the_counted_steps():
+    """Kernel time over ``k3.steps``; None with no such counter (a program
+    that does not count them, or a window with no K3 launch) or no device
+    time."""
+    from zkbench.metrics import k3_step_us
+
+    view = types.SimpleNamespace(program_kernel_s=0.0244, requests=10)
+    with session():
+        with trace.span("root"):
+            trace.count("k3.steps", 160)
+    assert k3_step_us.read(view) == pytest.approx(152.5)
+    assert k3_step_us.read(types.SimpleNamespace(program_kernel_s=0.0,
+                                                 requests=10)) is None
+    with session():
+        with trace.span("root"):
+            trace.count("k3.lanes.3")
+    assert k3_step_us.read(view) is None
+
+
 def test_conversions_count_their_rows_only_while_recording():
     from cuzk_tpu_torch.field import fr
 
@@ -343,7 +392,8 @@ def test_verify_each_is_one_root_span_and_one_route(dedupe, route):
 CELLS = {"semaphore-d20.commit": "commit",
          "cuzk-a4-50k.commit": "small_commit",
          "cuzk-a4-50k.verify": "verify",
-         "filecoin-32g-rlast.commit": "commit"}
+         "filecoin-32g-rlast.commit": "commit",
+         "filecoin-32g-wpost.verify": "verify"}
 
 
 @pytest.mark.parametrize("name", sorted(CELLS))
